@@ -1,0 +1,270 @@
+"""In-process N-peer round simulator on the GPU (counterpart of
+`biscotti_tpu/parallel/sim.py::Simulator`).
+
+One federated round for all peers at once:
+
+    draws    = draw_round(gen, it)   — contributors, minibatch rows, DP noise,
+                                       dropped frames
+    deltas   = vmap(local_step)      — S contributors' SGD steps
+    mask     = Krum                  — verifier committee (Hopper kernel)
+    w'       = w + Σ maskᵢ·deltaᵢ    — miner aggregation (ref honest.go:360-375)
+    stake'   = ±STAKE_UNIT scatter   — ledger bookkeeping (ref honest.go:414-419)
+
+The round is split in two: `draw_round` makes every random choice from the
+simulator's `torch.Generator`, and `round_step_from_draws` is pure and
+deterministic in its tensors. The reference draws from `jax.random`, whose
+streams torch does not reproduce; tests hold the port to the reference by
+feeding the reference's own draws to `round_step_from_draws`.
+
+The peer stack x[N, rows, d] lives on the device; a round gathers only its
+S·B minibatch rows from it.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import time
+from dataclasses import dataclass
+from typing import List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from biscotti_tpu_torch.config import BiscottiConfig, Defense
+from biscotti_tpu_torch.data import datasets as ds
+from biscotti_tpu_torch.device import resolve_device
+from biscotti_tpu_torch.models.base import Model
+from biscotti_tpu_torch.models.trainer import local_step_fn, sample_batch
+from biscotti_tpu_torch.models.zoo import model_for_dataset
+from biscotti_tpu_torch.ops import dp_noise
+from biscotti_tpu_torch.ops.krum import default_num_adversaries, krum_accept_mask
+from biscotti_tpu_torch.tools.verdicts import poisoned_ids
+
+
+@dataclass
+class RoundLog:
+    """One reference-log row: `iteration,error,timestamp`, and the round's
+    accepted-update count."""
+
+    iteration: int
+    error: float
+    timestamp: float
+    accepted: int = 0
+
+
+def _check_ported(defense: Defense) -> None:
+    if defense not in (Defense.KRUM, Defense.NONE):
+        raise NotImplementedError(
+            f"defense {defense.value} is not ported to biscotti_tpu_torch "
+            "yet (ROADMAP.md Queue A, item 8)")
+
+
+def defense_mask(defense: Defense, noised: torch.Tensor,
+                 num_adversaries: int) -> torch.Tensor:
+    """Verifier-committee accept mask over the round's noised updates
+    (KRUM or NONE so far)."""
+    _check_ported(defense)
+    if defense == Defense.KRUM:
+        return krum_accept_mask(noised, num_adversaries)
+    return torch.ones(noised.shape[0], dtype=torch.bool, device=noised.device)
+
+
+def masked_aggregate(mask: torch.Tensor, deltas: torch.Tensor,
+                     noised: torch.Tensor, dp_in_model: bool) -> torch.Tensor:
+    """Miner aggregation: the sum of the accepted RAW deltas, or of the
+    noised ones in dp_in_model mode, where the noise is part of the update
+    (ref: honest.go:172-179)."""
+    src = noised if dp_in_model else deltas
+    return torch.where(mask[:, None], src, torch.zeros_like(src)).sum(dim=0)
+
+
+def _round_seed(seed: int, stream: str, it: int) -> int:
+    """A 63-bit generator seed, pure in (seed, stream, round)."""
+    h = hashlib.sha256(f"biscotti_tpu_torch/{seed}/{stream}/{it}".encode())
+    return int.from_bytes(h.digest()[:8], "little") >> 1
+
+
+class Simulator:
+    """N peers on one device: the round's contributors batched as tensors."""
+
+    def __init__(self, cfg: BiscottiConfig,
+                 device: Optional[Union[str, torch.device]] = None,
+                 model: Optional[Model] = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = model or model_for_dataset(cfg.dataset, cfg.model_name)
+        self.mode = "sgd" if self.model.name == "logreg" else "grad"
+        self.num_params = self.model.num_params
+        if cfg.dp_mechanism != "gaussian":
+            raise NotImplementedError(
+                f"dp_mechanism {cfg.dp_mechanism!r} is not ported yet "
+                "(ROADMAP.md Queue A, item A4: mcmc13)")
+        self.defense = cfg.defense if cfg.verification else Defense.NONE
+        _check_ported(self.defense)
+
+        n = cfg.num_nodes
+        poisoned = poisoned_ids(n, cfg.poison_fraction)
+        xs, ys = [], []
+        for i in range(n):
+            shard = ds.load_shard(cfg.dataset,
+                                  ds.shard_name(cfg.dataset, i, i in poisoned))
+            xs.append(shard["x_train"])
+            ys.append(shard["y_train"])
+        rows = min(len(x) for x in xs)
+        self.x = torch.from_numpy(np.stack([x[:rows] for x in xs])).to(self.device)
+        self.y = torch.from_numpy(np.stack([y[:rows] for y in ys])).to(self.device)
+        self.rows = rows
+
+        test = ds.load_shard(cfg.dataset, f"{cfg.dataset}_test")
+        self.x_val = torch.from_numpy(test["x_test"]).to(self.device)
+        self.y_val = torch.from_numpy(test["y_test"]).to(self.device)
+        attack = ds.load_shard(cfg.dataset, f"{cfg.dataset}_digit1")
+        self.x_attack = torch.from_numpy(attack["x_test"]).to(self.device)
+        self.y_attack = torch.from_numpy(attack["y_test"]).to(self.device)
+
+        self.gen = torch.Generator(device=self.device)
+        step = local_step_fn(self.model, self.mode, clip=cfg.grad_clip,
+                             alpha=cfg.logreg_alpha)
+        self._batched_step = torch.func.vmap(step, in_dims=(None, 0, 0))
+        self._use_noise = cfg.noising or cfg.dp_in_model
+        self._noise_scale = dp_noise.sigma_for(
+            cfg.epsilon if self._use_noise else 0.0, cfg.delta)
+        self._noise_alpha = cfg.logreg_alpha if self.mode == "sgd" else 1.0
+        self._drop_p = cfg.fault_plan.drop if cfg.fault_plan.enabled else 0.0
+
+    # ------------------------------------------------------------- the round
+
+    def draw_round(self, gen: torch.Generator, it: int) -> Tuple[torch.Tensor, ...]:
+        """Every random choice of round `it`, re-seeding `gen` so the draws
+        are pure in (seed, it) like the reference's fold_in keys. Returns
+        cidx[S] (contributors, without replacement), batch_idx[S, B] (each
+        row's minibatch, without replacement), noise[S, d] (DP noise, zeros
+        when noising is off) and keep[S] (False where the fault plan drops the
+        contributor's frame, drawn from the fault seed)."""
+        cfg = self.cfg
+        n, s = cfg.num_nodes, cfg.num_samples
+        gen.manual_seed(_round_seed(cfg.seed, "round", it))
+        if s >= n:
+            cidx = torch.arange(n, device=self.device)
+        else:
+            cidx = torch.randperm(n, generator=gen, device=self.device)[:s]
+        s = cidx.shape[0]
+        batch_idx = sample_batch(gen, self.rows, cfg.batch_size, s)
+        if self._use_noise:
+            noise = dp_noise.round_noise(gen, s, self.num_params,
+                                         self._noise_scale, cfg.batch_size,
+                                         self._noise_alpha)
+        else:
+            noise = torch.zeros(s, self.num_params, device=self.device)
+        if self._drop_p > 0.0:
+            gen.manual_seed(_round_seed(cfg.fault_plan.seed, "drop", it))
+            keep = torch.rand(s, generator=gen, device=self.device) >= self._drop_p
+        else:
+            keep = torch.ones(s, dtype=torch.bool, device=self.device)
+        return cidx, batch_idx, noise, keep
+
+    def local_updates(self, w: torch.Tensor, cidx: torch.Tensor,
+                      batch_idx: torch.Tensor,
+                      noise: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(deltas[S, d], noised[S, d]): each contributor's step on its own
+        minibatch, and the copy the verifiers see."""
+        rows = cidx[:, None]
+        deltas = self._batched_step(w, self.x[rows, batch_idx],
+                                    self.y[rows, batch_idx])
+        return deltas, deltas + noise
+
+    def round_step_from_draws(self, w, stake, cidx, batch_idx, noise, keep):
+        """One round from its draws; pure. Returns (w_next, stake_next, mask,
+        err). A dropped frame (keep False) was scored by the verifiers but
+        joins no aggregate and moves no stake."""
+        cfg = self.cfg
+        deltas, noised = self.local_updates(w, cidx, batch_idx, noise)
+        mask = defense_mask(self.defense, noised,
+                            default_num_adversaries(cidx.shape[0]))
+        unit = torch.full_like(cidx, cfg.stake_unit, dtype=stake.dtype)
+        delta_stake = torch.where(mask, unit, -unit)
+        mask = mask & keep
+        delta_stake = torch.where(keep, delta_stake, torch.zeros_like(unit))
+        w_next = w + masked_aggregate(mask, deltas, noised, cfg.dp_in_model)
+        stake_next = stake.index_add(0, cidx, delta_stake)
+        err = self.model.error_flat(w_next, self.x_val, self.y_val)
+        return w_next, stake_next, mask, err
+
+    def round_step(self, w: torch.Tensor, stake: torch.Tensor, it: int):
+        return self.round_step_from_draws(w, stake, *self.draw_round(self.gen, it))
+
+    # ------------------------------------------------------------------ run
+
+    def init_state(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        w = torch.zeros(self.num_params, dtype=torch.float32, device=self.device)
+        stake = torch.full((self.cfg.num_nodes,), self.cfg.default_stake,
+                           dtype=torch.int32, device=self.device)
+        return w, stake
+
+    def run(self, num_rounds: Optional[int] = None, log_every: int = 1,
+            stop_at_convergence: bool = True):
+        """Python round loop; returns (w, stake, logs) like the reference."""
+        if num_rounds is None:
+            num_rounds = self.cfg.max_iterations
+        w, stake = self.init_state()
+        logs: List[RoundLog] = []
+        for it in range(num_rounds):
+            w, stake, mask, err = self.round_step(w, stake, it)
+            if it % log_every == 0 or it == num_rounds - 1:
+                e = float(err)
+                logs.append(RoundLog(it, e, time.time(), int(mask.sum())))
+                if stop_at_convergence and e < self.cfg.convergence_error:
+                    break
+        return w, stake, logs
+
+    # --------------------------------------------------------------- metrics
+
+    def test_error(self, w: torch.Tensor) -> float:
+        return float(self.model.error_flat(w.to(self.device), self.x_val, self.y_val))
+
+    def attack_rate(self, w: torch.Tensor) -> float:
+        return float(self.model.error_flat(w.to(self.device), self.x_attack,
+                                           self.y_attack))
+
+    def attack_success_rate(self, w: torch.Tensor) -> float:
+        """Fraction of attack-source samples predicted as exactly the attack
+        target class (the 1→7 rate)."""
+        target = ds.spec(self.cfg.dataset).attack_target
+        pred = torch.argmax(self.model.apply_flat(w.to(self.device), self.x_attack),
+                            dim=-1)
+        return float((pred == target).to(torch.float32).mean())
+
+
+# ------------------------------------------------------------------- CLI
+
+
+def main(argv=None) -> int:
+    """Standalone federated simulation on the GPU (`--device cpu` to ask for
+    the CPU); prints one JSON summary line."""
+    import argparse
+    import json
+
+    ap = argparse.ArgumentParser(description="in-process N-peer simulator (PyTorch)")
+    BiscottiConfig.add_args(ap)
+    ap.add_argument("--rounds", type=int, default=0,
+                    help="override max-iterations for the run")
+    ap.add_argument("--device", default=None,
+                    help="torch device; the GPU when not given")
+    ns = ap.parse_args(argv)
+    cfg = BiscottiConfig.from_args(ns)
+    sim = Simulator(cfg, device=ns.device)
+    w, stake, logs = sim.run(ns.rounds or cfg.max_iterations)
+    print(json.dumps({
+        "dataset": cfg.dataset, "nodes": cfg.num_nodes,
+        "device": (torch.cuda.get_device_name(sim.device)
+                   if sim.device.type == "cuda" else "cpu"),
+        "rounds_run": len(logs),
+        "final_error": logs[-1].error if logs else float("nan"),
+        "test_error": sim.test_error(w),
+        "attack_rate": sim.attack_rate(w),
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
