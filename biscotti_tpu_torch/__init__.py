@@ -9,6 +9,10 @@ its own copy.
 Slice 1 is the in-process N-peer simulator round (`parallel/sim.py`): local
 SGD, DP noise, the Krum accept mask (its scores from a hand-written Hopper
 kernel, `ops/krum_cuda.py` + `csrc/krum_scores.cu`), aggregation and stake.
+Slice 2 is the device crypto plane (`crypto/kernels/`: limb field, Edwards
+group, MSM, fixed-base, grid validation, Shamir recovery), with the
+on-curve validator as a hand-written Hopper kernel
+(`crypto/kernels/cuda_validate.py` + `csrc/oncurve.cu`).
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`
 (`device.resolve_device`); with no GPU and no explicit CPU choice they raise.

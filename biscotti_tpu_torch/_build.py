@@ -1,10 +1,14 @@
-"""Build and load the port's hand-written CUDA kernel.
+"""Build and load the port's hand-written CUDA kernels.
 
-The source `csrc/krum_scores.cu` has a plain C interface. It is compiled by
-`nvcc` for Hopper (`sm_90a`) into `build/libkrum_scores-<digest>.so` at first
-use, where the digest covers the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded. The library is loaded with
-`ctypes`; every pointer and the stream go across as `c_void_p`.
+Each source `csrc/<name>.cu` has a plain C interface. It is compiled by
+`nvcc` for Hopper (`sm_90a`) into `build/lib<name>-<digest>.so` at first use,
+where the digest covers that source and the flags, so an edited source is
+rebuilt and a stale library is never loaded. A library is loaded with
+`ctypes`, its C signatures declared; every pointer and the stream go across
+as `c_void_p`.
+
+    krum_scores  kernel B1, Krum scores        (ops/krum_cuda.py)
+    oncurve      kernel B2, on-curve validator (crypto/kernels/cuda_validate.py)
 
 Nothing is built or loaded at import time: the CPU tests import every module
 of the port on a machine with no `nvcc`.
@@ -21,11 +25,37 @@ import subprocess
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent
-SOURCE = PKG / "csrc" / "krum_scores.cu"
 BUILD = PKG / "build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+
+def _krum_signatures(lib: ctypes.CDLL) -> None:
+    # (x, sq, out, n, d, k, stream) -> cudaError_t
+    lib.krum_scores_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    lib.krum_scores_f32.restype = ctypes.c_int
+    lib.krum_error_string.argtypes = [ctypes.c_int]
+    lib.krum_error_string.restype = ctypes.c_char_p
+
+
+def _oncurve_signatures(lib: ctypes.CDLL) -> None:
+    # (xy, out, bad, n, stream) -> cudaError_t
+    lib.oncurve_mask_i64.argtypes = [ctypes.c_void_p] * 3 \
+        + [ctypes.c_longlong, ctypes.c_void_p]
+    lib.oncurve_mask_i64.restype = ctypes.c_int
+    lib.oncurve_error_string.argtypes = [ctypes.c_int]
+    lib.oncurve_error_string.restype = ctypes.c_char_p
+
+
+SIGNATURES = {"krum_scores": _krum_signatures,
+              "oncurve": _oncurve_signatures}
+KERNELS = tuple(SIGNATURES)
+
+
+def source(name: str) -> Path:
+    return PKG / "csrc" / f"{name}.cu"
 
 
 def nvcc() -> str:
@@ -41,41 +71,37 @@ def nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256(source(name).read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD / f"libkrum_scores-{digest}.so"
+    return BUILD / f"lib{name}-{digest}.so"
 
 
-def build() -> str:
-    """Compile the library if it is not built yet. Returns the compiler's
-    report ("" if it was already built); raises with it if nvcc fails."""
-    out = library_path()
+def build(name: str) -> str:
+    """Compile the named library unless it is built already. Returns the
+    compiler's report ("" if it was already built); raises with the report
+    if nvcc fails."""
+    out = library_path(name)
     if out.exists():
         return ""
     BUILD.mkdir(parents=True, exist_ok=True)
     # unique temporary name, then an atomic rename: another process never
     # loads a half-written library
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source(name))],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{proc.stdout}")
+        raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stdout}")
     os.replace(tmp, out)
     return proc.stdout
 
 
 @functools.lru_cache(maxsize=None)
-def load() -> ctypes.CDLL:
-    """The built library with its C signatures declared (built first if
+def load(name: str) -> ctypes.CDLL:
+    """The named library with its C signatures declared (built first if
     needed)."""
-    build()
-    lib = ctypes.CDLL(str(library_path()))
-    # (x, sq, out, n, d, k, stream) -> cudaError_t
-    lib.krum_scores_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
-    lib.krum_scores_f32.restype = ctypes.c_int
-    lib.krum_error_string.argtypes = [ctypes.c_int]
-    lib.krum_error_string.restype = ctypes.c_char_p
+    build(name)
+    lib = ctypes.CDLL(str(library_path(name)))
+    SIGNATURES[name](lib)
     return lib

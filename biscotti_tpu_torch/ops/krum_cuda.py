@@ -48,7 +48,7 @@ def krum_scores_kernel(x: torch.Tensor, num_adversaries: int) -> torch.Tensor:
     if k >= n:
         raise ValueError(f"num_adversaries={num_adversaries} leaves k={k} "
                          f">= n={n}")
-    lib = _build.load()
+    lib = _build.load("krum_scores")
     with torch.cuda.device(x.device):
         sq = (x * x).sum(dim=-1)
         out = torch.empty(n, dtype=torch.float32, device=x.device)

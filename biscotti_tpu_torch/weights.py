@@ -5,6 +5,13 @@ sorted-key order (recursively), each raveled row-major. These helpers read
 such a dict, or an already flat array, into the port's flat float32 tensor,
 and write it back out as numpy. They take anything numpy can read (a JAX
 array included) and import nothing of JAX.
+
+The device crypto plane (`crypto/kernels/`) needs no converter of its own:
+its whole state is the reference's int64 limb arrays (a field element
+[..., 16], a point batch [..., 4, 16], an affine cell [..., 2, 16]) and
+python-int points, the same numpy arrays in both packages. Its entry points
+take and return those, and carry them across with
+`torch.from_numpy(...).to(device)` and `.cpu().numpy()`.
 """
 
 from __future__ import annotations

@@ -8,8 +8,9 @@ printed as one JSON line:
 
   1. device   card name and power limit (nvidia-smi), TF32 off for matmul
               and cuDNN;
-  2. build    the CUDA kernel built from the repo's source by nvcc, with
-              ptxas's report;
+  2. build    both CUDA kernels built from the repo's sources by nvcc, one
+              process each, started together, with ptxas's register and
+              spill report and the on-curve kernel's SASS instruction mix;
   3. kernel   krum_scores kernel vs its plain PyTorch version on the card,
               random shapes up to (4096, 7850), a 30-row duplicate-tie case
               and a poison-cluster case whose accept set must be identical
@@ -24,7 +25,26 @@ printed as one JSON line:
               below half the Krum score gap at the accept boundary; one
               round's draws run on the card and on the CPU port: masks
               and stakes equal, w within rtol 1e-4;
-  6. kernels  one line for every ported kernel (launches from phase 4).
+  crypto_kernel
+              the on-curve kernel (B2) vs its plain PyTorch version on
+              the VSS fold's 64 × 7,850 = 502,400 cells (valid points,
+              bit flips, x + p, y + p, edge values, (0, −1), (0, 1),
+              random limbs): masks exactly equal, the known-valid cells
+              all True, a 20,000-cell sample held against the python-int
+              oracle; the wrapper's, the kernel's alone and the plain
+              version's times (CUDA events, median of 20) beside the
+              card's least time for the work;
+  crypto      the device crypto plane at the mnist secure-aggregation
+              width (C = 785 chunks × k = 10 = 7,850 grid points, 35 grids
+              a wave padded to 64), in VssIntakeBatch's order: validate
+              and sum a wave with two bad grids (B2 launched once, exactly
+              those two evicted), fold a second wave with ext_add, settle
+              (msm == pedersen_commit_point, and not when one scalar
+              changes); card == CPU port bit for bit on a small wave;
+              host-clock times of every entry point and one
+              torch.profiler window over the msm;
+  6. kernels  one line for every ported kernel (launches from phase 4 and
+              from the crypto phase's intake).
 
 Then the card's `name, power.limit` line as nvidia-smi prints it (the line
 the run's records are keyed by) and, last, the device JSON. Any
@@ -40,14 +60,37 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
 
 # published peaks of one H100 SXM (NVIDIA data sheet) at its 700 W limit:
 # fp32 FLOP/s outside the tensor cores, HBM bytes/s
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# the integer pipes of one H100 SXM: 132 SMs at 1.98 GHz, the clock behind
+# the data sheet's fp32 figure (67e12 / (132 SMs × 128 lanes × 2)); per SM
+# and clock, 64 lanes of 32-bit integer results on each of the FMA pipe
+# and the ALU pipe (CUDA C++ Programming Guide, arithmetic throughput
+# table, compute capability 9.0) and 128 lanes issued (4 schedulers × 32)
+SMS, CLOCK_HZ = 132, 1.98e9
+PIPE_LANES, ISSUE_LANES = 64, 128
+# SASS opcodes (the part before the first dot) by where they run; U* are the
+# uniform datapath's, one per warp, and not counted either
+FMA_PIPE = {"IMAD", "IMUL"}
+ALU_PIPE = {"IADD3", "LOP3", "SHF", "LEA", "ISETP", "SEL", "PLOP3", "IMNMX",
+            "PRMT"}
+EITHER_PIPE = {"VIADD"}
+NOT_COUNTED = {"MOV", "LDC", "LDG", "STG", "S2R", "CS2R", "EXIT", "BRA", "NOP",
+               "HFMA2", "BSSY", "BSYNC"}
 KERNEL_SHAPES = [(8, 16), (130, 50), (716, 7850), (1024, 7850), (4096, 7850)]
 RTOL = 1e-4
 REPS = 20
+# the VSS intake at the bench's mnist secure-aggregation width
+# (bench.py:849-858: N = 100, sample_percent 0.70; config.py:170)
+CHUNKS, POLY = 785, 10  # C chunks of k coefficients: d = 7,850
+WAVE = 35  # num_samples // 2 grids a wave (bench.py:272)
+SHARES = 15  # share points of the Shamir recovery timing
 
 
 def emit(phase: str, **fields) -> None:
@@ -84,6 +127,82 @@ def krum_bound(n: int, d: int):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def oncurve_bound(n: int, mix):
+    """(ms, what bounds it, the counts): the least time for the on-curve
+    mask of n cells, the larger of the bytes (each cell's 32 int64 limbs
+    read once, its 1-byte verdict written once) over the memory rate and
+    the cell's integer instructions over the rate of the pipes that run
+    them. `mix` is the kernel's own SASS mix, {opcode: count}, as
+    `sass_mix` reads it from the library this run built. The kernel has no
+    loop and no data-dependent branch, so every cell issues the whole
+    listing once. Per cell:
+      * fma: the FMA pipe's lane-passes, IMAD and IMUL, each IMAD.WIDE (a
+        limb product with a 64-bit result) counted twice for its two
+        passes; IMAD.MOV is a move;
+      * alu: the ALU pipe's adds, logic, shifts, LEA, compares and selects;
+      * issued: every counted instruction once.
+    The pipes run at once, so a cell needs max(fma / 64, alu / 64,
+    issued / 128) clocks of an SM. VIADD may go to either pipe: the
+    bound takes the placement that gives the least time, so it holds
+    wherever VIADD runs. Moves, loads, the store, the uniform datapath and
+    control instructions are not counted."""
+    if not isinstance(mix, dict):
+        raise AssertionError(f"oncurve_bound needs the kernel's SASS mix: {mix}")
+    if mix.get("BRA", 0) > 1:
+        raise AssertionError("the on-curve kernel's SASS has a branch besides "
+                             "its final one: the per-cell count needs its "
+                             "trip count")
+    fma = alu = either = issued = 0
+    for op, count in mix.items():
+        base = op.split(".")[0]
+        if base in NOT_COUNTED or base.startswith("U") \
+                or op.startswith("IMAD.MOV"):
+            continue
+        if base in FMA_PIPE:
+            fma += 2 * count if op.startswith("IMAD.WIDE") else count
+        elif base in ALU_PIPE:
+            alu += count
+        elif base in EITHER_PIPE:
+            either += count
+        else:
+            raise AssertionError(f"oncurve_bound: no pipe known for {op}")
+        issued += count
+    clocks = min(max((fma + f) / PIPE_LANES, (alu + either - f) / PIPE_LANES,
+                     issued / ISSUE_LANES) for f in (0, either))
+    ops_ms = 1e3 * n * clocks / (SMS * CLOCK_HZ)
+    bytes_ms = 1e3 * n * (2 * 16 * 8 + 1) / PEAK_BYTES_PER_S
+    counts = {"fma": fma, "alu": alu, "either": either, "issued": issued,
+              "sm_clocks_per_cell": clocks, "ops_ms": ops_ms,
+              "bytes_ms": bytes_ms}
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations", counts
+    return bytes_ms, "bytes", counts
+
+
+def sass_mix(lib, kernel: str):
+    """{opcode: count} of `kernel`'s SASS in the built library, read with
+    the toolkit's cuobjdump, or why it could not be read."""
+    import re
+
+    from biscotti_tpu_torch import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return "not measured: no cuobjdump beside nvcc"
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120).stdout
+    mix, inside = {}, False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)", line)
+        if inside and m:
+            mix[m.group(1)] = mix.get(m.group(1), 0) + 1
+    return dict(sorted(mix.items(), key=lambda kv: -kv[1]))
+
+
 def rel_err(got, ref) -> float:
     return float(((got - ref).abs() / (ref.abs() + 1e-6)).max())
 
@@ -92,6 +211,277 @@ def accept_set(scores, keep: int):
     import torch
 
     return set(torch.sort(scores, stable=True).indices[:keep].tolist())
+
+
+def host_s(fn, reps: int = 3):
+    """(median host-clock seconds of `reps` calls, the last result). Every
+    entry point of the crypto plane ends in a host copy of its result, so
+    the clock covers its device work."""
+    times, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), out
+
+
+def valid_grid(seed: int):
+    """One valid VSS commitment grid of C·k affine points aᵢ·B + bᵢ·H,
+    with known aᵢ, bᵢ < q, from the port's fixed_base_mult on the card and
+    its ed25519 copy for the affine form: ([C, k, 64] uint8, a, b)."""
+    from biscotti_tpu_torch.crypto import ed25519 as ed
+    from biscotti_tpu_torch.crypto.commitments import H_POINT
+    from biscotti_tpu_torch.crypto.kernels import primitives as prim
+    from biscotti_tpu_torch.crypto.kernels.cells import grid_bytes
+
+    rng = np.random.default_rng(seed)
+    n = CHUNKS * POLY
+    a = [int.from_bytes(rng.bytes(32), "little") % ed.Q for _ in range(n)]
+    b = [int.from_bytes(rng.bytes(32), "little") % ed.Q for _ in range(n)]
+    grid = grid_bytes(a, b, prim.fixed_base_mult)
+    for i in (0, 1, n - 1):  # the python-int oracle on a few points
+        want = ed.to_affine(ed.point_add(ed.base_mult(a[i]),
+                                         ed.scalar_mult(b[i], H_POINT)))
+        got = (int.from_bytes(grid[i, :32].tobytes(), "little"),
+               int.from_bytes(grid[i, 32:].tobytes(), "little"))
+        if got != want:
+            raise AssertionError(f"fixed_base_mult disagrees with the "
+                                 f"oracle at point {i}")
+    return grid.reshape(CHUNKS, POLY, 64), a, b
+
+
+def oncurve_cells(grid_limbs: np.ndarray, waves: int, seed: int):
+    """The VSS fold's cells with every kind of input mixed in: `waves`
+    copies of the grid's [n, 2, 16] limbs, half left valid and half split
+    among bit flips, x + p, y + p (on the curve, not canonical), edge
+    values in either coordinate, the order-2 point (0, −1), the identity
+    (0, 1) and random limbs. Returns (cells, {kind: indices}) for the
+    kinds whose every cell lies on the curve."""
+    from biscotti_tpu_torch.crypto import ed25519 as ed
+    from biscotti_tpu_torch.crypto.kernels.cells import EDGE_FIELD, raw_limbs
+
+    rng = np.random.default_rng(seed)
+    cells = np.tile(grid_limbs.astype(np.int64), (waves, 1, 1))
+    n = len(cells)
+    order = rng.permutation(n)
+    flip, xp, yp, edge, small, rand = np.array_split(order[:n // 2], 6)
+    k = len(flip)
+    cells[flip, rng.integers(0, 2, k), rng.integers(0, 16, k)] ^= \
+        1 << rng.integers(0, 16, k)
+    p_limbs = raw_limbs([ed.P])[0]
+    for idx, coord in ((xp, 0), (yp, 1)):
+        v, c = cells[idx, coord], 0
+        for i in range(16):  # + p with the carry propagated: < 2²⁵⁶
+            s = v[:, i] + p_limbs[i] + c
+            v[:, i], c = s & 0xFFFF, s >> 16
+        cells[idx, coord] = v
+    edges = raw_limbs(EDGE_FIELD)
+    k = len(edge)
+    cells[edge, rng.integers(0, 2, k)] = edges[rng.integers(0, len(edges), k)]
+    half = len(small) // 2
+    cells[small[:half]] = raw_limbs([0, ed.P - 1])
+    cells[small[half:]] = raw_limbs([0, 1])
+    cells[rand] = rng.integers(0, 1 << 16, (len(rand), 2, 16))
+    return cells, {"valid": order[n // 2:], "x_plus_p": xp, "y_plus_p": yp,
+                   "order_2": small[:half], "identity": small[half:]}
+
+
+def crypto_kernel_phase(dev, grid: np.ndarray, mix) -> dict:
+    """Kernel B2 against its plain version on the VSS fold's cells; `mix`
+    is its SASS mix from the build phase, for its bound."""
+    import torch
+
+    from biscotti_tpu_torch import _build
+    from biscotti_tpu_torch.crypto.kernels import cuda_validate as cv
+    from biscotti_tpu_torch.crypto.kernels import group as gp
+    from biscotti_tpu_torch.crypto.kernels import primitives as prim
+
+    t_phase = time.perf_counter()
+    waves = prim._pow2(WAVE, prim.GRID_MIN_WAVES)
+    cells, valid_kinds = oncurve_cells(
+        gp.xy_bytes_to_limbs(grid.tobytes(), CHUNKS * POLY), waves, seed=0)
+    n = len(cells)
+    xy = torch.from_numpy(cells).to(dev)
+    launches = cv.oncurve_mask.launches
+    got, ref = cv.oncurve_mask(xy), cv.oncurve_mask_plain(xy)
+    torch.cuda.synchronize()
+    mask = got.cpu().numpy()
+    sample = np.random.default_rng(1).choice(n, min(n, 20_000), replace=False)
+    canon, full = prim._cell_canonical_mask(cells[sample][None])
+    try:
+        ones = torch.ones(2, 2, dtype=torch.int64, device=dev)
+        int64_matmul = f"runs: {(ones @ ones).tolist()}"
+    except RuntimeError as e:
+        int64_matmul = str(e).splitlines()[0]
+    row = {"cells": n, "waves": waves,
+           "mismatches": int((got != ref).sum()),
+           "max_abs_err": float((got.int() - ref.int()).abs().max()),
+           "on_curve": int(mask.sum()),
+           "valid_kinds_all_true": {k: bool(mask[i].all())
+                                    for k, i in valid_kinds.items()},
+           "oracle_sample_agrees": bool(np.array_equal(mask[sample] & canon[0],
+                                                       full[0])),
+           "int64_matmul_on_card": int64_matmul,
+           "ms": time_ms(lambda: cv.oncurve_mask(xy)),
+           "plain_ms": time_ms(lambda: cv.oncurve_mask_plain(xy))}
+    row["launches"] = cv.oncurve_mask.launches - launches  # 1 + timing
+    # the kernel alone, without the wrapper's flag fill and read-back
+    lib, stream = _build.load("oncurve"), torch.cuda.current_stream().cuda_stream
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    row["kernel_only_ms"] = time_ms(lambda: lib.oncurve_mask_i64(
+        xy.data_ptr(), out.data_ptr(), flag.data_ptr(), n, stream))
+    if not torch.equal(out, got) or int(flag):
+        raise AssertionError("the on-curve kernel's direct launch disagrees "
+                             "with its wrapper")
+    row["bound_ms"], row["bound_by"], row["bound_counts"] = oncurve_bound(n, mix)
+    row["seconds"] = time.perf_counter() - t_phase
+    emit("crypto_kernel", **row)
+    if row["mismatches"]:
+        raise AssertionError(f"on-curve kernel disagrees with its plain "
+                             f"version on {row['mismatches']} cells")
+    if not all(row["valid_kinds_all_true"].values()):
+        raise AssertionError("on-curve mask is False on a cell that lies on "
+                             "the curve")
+    if not row["oracle_sample_agrees"]:
+        raise AssertionError("on-curve kernel disagrees with the python-int "
+                             "oracle")
+    return row
+
+
+def crypto_phase(dev, grid: np.ndarray, a, b) -> dict:
+    """The device crypto plane in VssIntakeBatch's order at full width,
+    then card vs CPU, times and a profile of the settle's msm."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from biscotti_tpu_torch.crypto import ed25519 as ed
+    from biscotti_tpu_torch.crypto.commitments import _xy_to_point
+    from biscotti_tpu_torch.crypto.kernels import cuda_validate as cv
+    from biscotti_tpu_torch.crypto.kernels import group as gp
+    from biscotti_tpu_torch.crypto.kernels import primitives as prim
+
+    t_phase = time.perf_counter()
+    n = CHUNKS * POLY
+    i_flip, i_nc = n // 5, 4 * n // 5  # one bad cell in each bad grid
+    flip = grid.reshape(n, 64).copy()
+    flip[i_flip, 0] ^= 1  # low bit of the cell's x: off the curve
+    noncanon = grid.reshape(n, 64).copy()
+    x = int.from_bytes(noncanon[i_nc, :32].tobytes(), "little")
+    noncanon[i_nc, :32] = np.frombuffer((x + ed.P).to_bytes(32, "little"),
+                                        np.uint8)
+    if _xy_to_point(flip[i_flip].tobytes()) is not None \
+            or _xy_to_point(noncanon[i_nc].tobytes()) is not None:
+        raise AssertionError("the bad cells pass the CPU loader")
+    bad = (5, 20)
+    wave1 = [grid] * WAVE
+    wave1[bad[0]], wave1[bad[1]] = flip, noncanon
+    wave2 = [grid] * WAVE
+    rng = np.random.default_rng(2)
+    # RLC-shaped settle scalars: 8·v mod q, as VssIntakeBatch.verify forms
+    gam = [(8 * int.from_bytes(rng.bytes(32), "little")) % ed.Q
+           for _ in range(n)]
+
+    # the intake, launches counted from 0: two wave folds and the settle
+    os.environ["BISCOTTI_PALLAS_CRYPTO"] = "1"
+    cv.oncurve_mask.launches = 0
+    t0 = time.perf_counter()
+    mask1, summed1 = prim.grid_validate_sum(wave1)
+    wave1_launches = cv.oncurve_mask.launches
+    mask2, summed2 = prim.grid_validate_sum(wave2)
+    acc = prim.ext_add(summed1, summed2)
+    m = int(mask1.sum()) + int(mask2.sum())
+    rhs = prim.msm(gam, acc)
+    lhs = prim.pedersen_commit_point(m * sum(g * s for g, s in zip(gam, a)),
+                                     m * sum(g * s for g, s in zip(gam, b)))
+    settled = ed.point_equal(lhs, rhs)
+    intake_s = time.perf_counter() - t0
+    launches = cv.oncurve_mask.launches
+    gam_bad = list(gam)
+    gam_bad[17] = (gam_bad[17] + 1) % ed.Q
+    perturbed = ed.point_equal(lhs, prim.msm(gam_bad, acc))
+
+    # card against the CPU port on a small wave (the switch still on)
+    ns = min(64, n)
+    small = grid.reshape(n, 64)[:ns].copy()
+    small_bad = small.copy()
+    small_bad[ns // 2, 40] ^= 2  # a bit of one cell's y
+    wave_s = [small, small_bad, small]
+    gm, gs = prim.grid_validate_sum(wave_s)
+    cmask, cs = prim.grid_validate_sum(wave_s, device="cpu")
+    ga, ca = prim.ext_add(gs, gs), prim.ext_add(cs, cs, device="cpu")
+    parity = {"mask_equal": bool(np.array_equal(gm, cmask)),
+              "summed_equal": bool(np.array_equal(gs, cs)),
+              "ext_add_equal": bool(np.array_equal(ga, ca)),
+              "msm_equal": prim.msm(gam[:ns], ga) == prim.msm(gam[:ns], ca,
+                                                               device="cpu"),
+              "mask": gm.tolist()}
+
+    # times (host clock, median of 3; each call ends in a host copy)
+    times = {}
+    os.environ.pop("BISCOTTI_PALLAS_CRYPTO")
+    times["fold_switch_off_s"] = host_s(lambda: prim.grid_validate_sum(wave2))[0]
+    os.environ["BISCOTTI_PALLAS_CRYPTO"] = "1"
+    times["fold_switch_on_s"] = host_s(lambda: prim.grid_validate_sum(wave2))[0]
+    os.environ.pop("BISCOTTI_PALLAS_CRYPTO")
+    xy2 = np.stack([gp.xy_bytes_to_limbs(g.tobytes(), n) for g in wave2])
+    times["host_oracle_s"] = host_s(lambda: prim._cell_canonical_mask(xy2))[0]
+    times["fold_switch_on_minus_oracle_s"] = (times["fold_switch_on_s"]
+                                              - times["host_oracle_s"])
+    times["ext_add_s"] = host_s(lambda: prim.ext_add(summed1, summed2))[0]
+    times["msm_s"] = host_s(lambda: prim.msm(gam, acc))[0]
+    times["pedersen_commit_point_s"] = host_s(
+        lambda: prim.pedersen_commit_point(gam[0], gam[1]))[0]
+    times["fixed_base_mult_s"] = host_s(lambda: prim.fixed_base_mult(a, "B"))[0]
+    xs = np.arange(SHARES) - 10  # share points as ss.share_xs makes them
+    vander = xs[:, None] ** np.arange(POLY)[None, :]
+    pinv = np.linalg.pinv(vander.astype(np.float64))
+    coeffs = rng.integers(-10**4, 10**4, (CHUNKS, POLY))
+    times["shamir_recover_s"], recovered = host_s(
+        lambda: prim.shamir_recover(pinv, vander @ coeffs.T))
+
+    # one profiled msm: the 256-step ladder's device time and launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prim.msm(gam, acc)
+        torch.cuda.synchronize()
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:5]
+    msm_profile = {
+        "device_ms": device_ms,
+        "kernel_launches": sum(e.count for e in on_device),
+        "device_idle_share": 1.0 - device_ms / (1e3 * times["msm_s"]),
+        "top": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
+                 "calls": e.count} for e in top]}
+
+    row = {"points": n, "wave": WAVE, "padded_waves":
+           prim._pow2(WAVE, prim.GRID_MIN_WAVES), "msm_lanes":
+           prim._pow2(n, prim.MSM_MIN_LANES),
+           "wave1_mask_false": [int(i) for i in np.flatnonzero(~mask1)],
+           "wave2_all_true": bool(mask2.all()), "valid_members": m,
+           "oncurve_launches": launches, "wave1_launches": wave1_launches,
+           "settled": settled, "perturbed_settles": perturbed,
+           "intake_s": intake_s, "card_vs_cpu": parity,
+           "shamir_exact": bool(np.array_equal(recovered, coeffs)),
+           "times": times, "msm_profile": msm_profile,
+           "seconds": time.perf_counter() - t_phase}
+    emit("crypto", **row)
+    if row["wave1_mask_false"] != list(bad) or not row["wave2_all_true"]:
+        raise AssertionError("grid validation evicted the wrong grids")
+    if wave1_launches != 1 or launches != 2:
+        raise AssertionError(f"the on-curve kernel launched {wave1_launches} "
+                             f"times in the first fold and {launches} in the "
+                             "intake, not once per fold")
+    if not settled or perturbed:
+        raise AssertionError("the settle does not hold the RLC equation")
+    if not all(v for k, v in parity.items() if k != "mask") \
+            or parity["mask"] != [True, False, True]:
+        raise AssertionError("card and CPU port disagree on the crypto plane")
+    if not row["shamir_exact"]:
+        raise AssertionError("shamir_recover is not exact")
+    return row
 
 
 def main() -> int:
@@ -124,10 +514,16 @@ def main() -> int:
 
     # 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    log = _build.build()
+    with ThreadPoolExecutor(len(_build.KERNELS)) as pool:  # one nvcc each
+        logs = dict(zip(_build.KERNELS, pool.map(_build.build, _build.KERNELS)))
+    oncurve_sass = sass_mix(_build.library_path("oncurve"), "oncurve_kernel")
     emit("build", seconds=time.perf_counter() - t0,
-         source=str(_build.SOURCE.relative_to(_build.PKG.parent)),
-         ptxas=[l for l in log.splitlines() if "registers" in l or "spill" in l])
+         sources=[str(_build.source(k).relative_to(_build.PKG.parent))
+                  for k in _build.KERNELS],
+         ptxas={k: [l.strip() for l in log.splitlines()
+                    if "registers" in l or "spill" in l]
+                for k, log in logs.items()},
+         oncurve_sass=oncurve_sass)
 
     # 3. kernel vs plain --------------------------------------------------
     kern, plain = krum_cuda.krum_scores_kernel, krum_cuda.krum_scores_plain
@@ -266,6 +662,11 @@ def main() -> int:
     if not torch.allclose(w_gpu, w_cpu, rtol=RTOL, atol=w_tol):
         raise AssertionError("card and CPU rounds disagree on w")
 
+    # crypto_kernel, crypto: the device crypto plane and kernel B2 --------
+    grid, a, b = valid_grid(seed=0)
+    b2 = crypto_kernel_phase(dev, grid, oncurve_sass)
+    crypto = crypto_phase(dev, grid, a, b)
+
     # 6. kernels ----------------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "krum_scores", "route": "cuda",
@@ -275,6 +676,14 @@ def main() -> int:
         "max_abs_err": main_kernel["max_abs_err"],
         "ms": main_kernel["ms"], "plain_ms": main_kernel["plain_ms"],
         "bound_ms": main_kernel["bound_ms"], "bound_by": main_kernel["bound_by"],
+        "library_ms": None}, {
+        "name": "oncurve_validate", "route": "cuda",
+        "source": "biscotti_tpu_torch/csrc/oncurve.cu",
+        "replaces": "biscotti_tpu/crypto/kernels/pallas_validate.py:34",
+        "launches": crypto["oncurve_launches"],
+        "max_abs_err": b2["max_abs_err"],
+        "ms": b2["ms"], "plain_ms": b2["plain_ms"],
+        "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],
         "library_ms": None}]}), flush=True)
     print(smi, flush=True)  # the card's name and power limit, verbatim
     print(json.dumps({"ok": True, "device": {

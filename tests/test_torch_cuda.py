@@ -6,12 +6,19 @@ conftest (which imports JAX):
     python -m pytest -m cuda --noconftest tests/test_torch_cuda.py -q
 
 Tolerance: rtol 1e-4 on Krum scores, as tests/test_krum_pallas.py holds the
-TPU kernel (the kernel and the plain version sum in other orders).
+TPU kernel (the kernel and the plain version sum in other orders). The crypto
+plane is exact: on-curve masks equal, limb tensors equal bit for bit.
 """
 
+import numpy as np
 import pytest
 import torch
 
+from biscotti_tpu_torch.crypto import ed25519 as ed
+from biscotti_tpu_torch.crypto.kernels import cuda_validate as cv
+from biscotti_tpu_torch.crypto.kernels.cells import (edge_cells, grid_bytes,
+                                                     random_cells)
+from biscotti_tpu_torch.crypto.kernels import primitives as prim
 from biscotti_tpu_torch.ops import krum_cuda
 from biscotti_tpu_torch.ops.krum import default_num_adversaries, krum_accept_mask
 
@@ -81,3 +88,87 @@ def test_kernel_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError):
         krum_cuda.krum_scores_kernel(x.t(), 4)
     assert not krum_cuda.krum_scores_kernel(x[:4], 2).any()  # k = 0
+
+
+# ------------------------------------------------ kernel B2, the crypto plane
+
+
+def _oncurve_against_plain(cells: np.ndarray, dev) -> np.ndarray:
+    xy = torch.from_numpy(cells).to(dev)
+    before = cv.oncurve_mask.launches
+    got = cv.oncurve_mask(xy)
+    torch.cuda.synchronize()
+    assert cv.oncurve_mask.launches == before + 1
+    assert got.device == xy.device and got.dtype == torch.bool
+    assert torch.equal(got, cv.oncurve_mask_plain(xy))
+    return got.cpu().numpy()
+
+
+def test_oncurve_kernel_matches_plain_on_edges(dev):
+    cells = edge_cells()
+    got = _oncurve_against_plain(cells, dev)
+    # the valid points, their +p twins, (0, -1) and (0, 1) lie on the curve
+    assert got[49:].tolist() == [True, True, True, False, False] * 4 + [True, True]
+    # numpy in, numpy out, on the default device
+    assert np.array_equal(cv.oncurve_mask(cells), got)
+
+
+def test_oncurve_kernel_matches_plain_on_100k_cells(dev):
+    cells = random_cells(100_000, seed=3)
+    valid = edge_cells()[49:69:5]  # four valid points
+    cells[::7] = np.resize(valid, cells[::7].shape)
+    got = _oncurve_against_plain(cells, dev)
+    assert got[::7].all() and got.sum() == len(cells[::7])
+
+
+def test_oncurve_kernel_rejects_what_it_does_not_take(dev):
+    xy = torch.from_numpy(edge_cells()).to(dev)
+    with pytest.raises(ValueError):
+        cv.oncurve_mask(xy.to(torch.int32))
+    with pytest.raises(ValueError):
+        cv.oncurve_mask(xy[:, :, :8])
+    with pytest.raises(ValueError):
+        cv.oncurve_mask(xy.transpose(1, 2).contiguous().transpose(1, 2))
+    assert cv.oncurve_mask(xy[:0]).shape == (0,)
+    for limb in (-1, 1 << 17, 1 << 32):  # outside [0, 2^17): flagged
+        bad = xy.clone()
+        bad[3, 1, 5] = limb
+        with pytest.raises(ValueError, match="limbs in"):
+            cv.oncurve_mask(bad)
+    top = xy.clone()
+    top[:, :, 0] = (1 << 17) - 1  # the largest limb in contract
+    assert torch.equal(cv.oncurve_mask(top), cv.oncurve_mask_plain(top))
+
+
+def test_plane_card_matches_cpu_bit_for_bit(dev, monkeypatch):
+    rng = np.random.default_rng(4)
+    n = 40
+    a = [int(v) for v in rng.integers(1, 2**62, n)]
+    b = [int(v) for v in rng.integers(1, 2**62, n)]
+    grid = grid_bytes(a, b, prim.fixed_base_mult)
+    assert grid_bytes(a[:3], b[:3], prim.fixed_base_mult,
+                      device="cpu").tobytes() == grid[:3].tobytes()
+    bad = grid.copy()
+    bad[7, 3] ^= 1
+    wave = [grid, bad, grid]
+    monkeypatch.setenv("BISCOTTI_PALLAS_CRYPTO", "1")
+    before = cv.oncurve_mask.launches
+    mask, summed = prim.grid_validate_sum(wave)
+    assert cv.oncurve_mask.launches == before + 1
+    cmask, csummed = prim.grid_validate_sum(wave, device="cpu")
+    assert mask.tolist() == cmask.tolist() == [True, False, True]
+    assert np.array_equal(summed, csummed)
+    acc = prim.ext_add(summed, summed)
+    assert np.array_equal(acc, prim.ext_add(summed, summed, device="cpu"))
+    gam = [int.from_bytes(rng.bytes(32), "little") for _ in range(n)]
+    rhs = prim.msm(gam, acc)
+    assert rhs == prim.msm(gam, acc, device="cpu")
+    m = 4  # two valid grids, summed twice
+    lhs = prim.pedersen_commit_point(m * sum(g * x for g, x in zip(gam, a)),
+                                     m * sum(g * y for g, y in zip(gam, b)))
+    assert ed.point_equal(lhs, rhs)
+    pinv = np.linalg.pinv(np.vander(np.arange(15) - 10, 10, increasing=True)
+                          .astype(np.float64))
+    coeffs = rng.integers(-1000, 1000, (785, 10))
+    agg = np.vander(np.arange(15) - 10, 10, increasing=True) @ coeffs.T
+    assert np.array_equal(prim.shamir_recover(pinv, agg), coeffs)

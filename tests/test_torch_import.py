@@ -26,6 +26,11 @@ def test_port_modules_import_without_jax_or_reference():
     mods = _port_modules()
     assert "biscotti_tpu_torch.parallel.sim" in mods
     assert "biscotti_tpu_torch.ops.krum_cuda" in mods
+    crypto = {"biscotti_tpu_torch.crypto." + m for m in (
+        "ed25519", "commitments", "kernels", "kernels.instrument",
+        "kernels.field", "kernels.group", "kernels.cuda_validate",
+        "kernels.primitives", "kernels.cells")}
+    assert crypto <= set(mods), crypto - set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
