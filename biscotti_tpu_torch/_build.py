@@ -7,7 +7,8 @@ rebuilt and a stale library is never loaded. A library is loaded with
 `ctypes`, its C signatures declared; every pointer and the stream go across
 as `c_void_p`.
 
-    krum_scores  kernel B1, Krum scores        (ops/krum_cuda.py)
+    krum_scores  kernel B1, Krum scores        (ops/krum_cuda.py; three CUDA
+                 kernels a call: pad, fp32 Gram, row select)
     oncurve      kernel B2, on-curve validator (crypto/kernels/cuda_validate.py)
 
 Nothing is built or loaded at import time: the CPU tests import every module
@@ -32,8 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 
 def _krum_signatures(lib: ctypes.CDLL) -> None:
-    # (x, sq, out, n, d, k, stream) -> cudaError_t
-    lib.krum_scores_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+    # (x, sq, out, xp, dist, partials, counters,
+    #  n, d, n_pad, d_pad, splits, k, stream) -> cudaError_t
+    lib.krum_scores_f32.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
     lib.krum_scores_f32.restype = ctypes.c_int
     lib.krum_error_string.argtypes = [ctypes.c_int]

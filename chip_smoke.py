@@ -10,19 +10,28 @@ printed as one JSON line:
               and cuDNN;
   2. build    both CUDA kernels built from the repo's sources by nvcc, one
               process each, started together, with ptxas's register and
-              spill report and the on-curve kernel's SASS instruction mix;
+              spill report, the on-curve kernel's SASS instruction mix and
+              the Krum Gram kernel's (its FFMA and HMMA counts);
   3. kernel   krum_scores kernel vs its plain PyTorch version on the card,
-              random shapes up to (4096, 7850), a 30-row duplicate-tie case
-              and a poison-cluster case whose accept set must be identical
-              (rtol 1e-4 on scores); kernel and plain times (CUDA events,
-              median of 20) beside the card's least time for the work
-              (the H100 SXM's published fp32 and memory peaks);
+              random shapes up to (4096, 7850), a 30-row duplicate-tie case,
+              a poison-cluster case whose accept set must be identical
+              (rtol 1e-4 on scores) and a cancellation-heavy case (rows
+              sharing one large mean) whose accept set must be identical
+              and whose error against float64 scores must be no larger
+              than the plain version's (10 % slack); at every shape two
+              calls and a direct launch equal bit for bit; the wrapper's,
+              the kernel's alone (the C interface on scratch allocated
+              once), the plain version's and the fp32 cuBLAS Gram x @ x.T's
+              times (CUDA events, median of 20) beside the card's least
+              time for the work on the pipe the kernel uses and on the
+              TF32 tensor pipe (the H100 SXM's published peaks);
   4. main     the simulator round at eval/eval_sim_scale.py's largest
               configuration (mnist softmax, N=1024, S=716, KRUM, DP ε=1,
               batch 10) with poison 0.3: 2 warm and 5 timed rounds, the
               kernel launched exactly once per round;
   5. parity   the kernel on the main path's own updates, its error held
-              below half the Krum score gap at the accept boundary; one
+              below half the Krum score gap at the accept boundary, its
+              times as in phase 3 and two calls equal bit for bit; one
               round's draws run on the card and on the CPU port: masks
               and stakes equal, w within rtol 1e-4;
   crypto_kernel
@@ -65,9 +74,17 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 # published peaks of one H100 SXM (NVIDIA data sheet) at its 700 W limit:
-# fp32 FLOP/s outside the tensor cores, HBM bytes/s
+# fp32 FLOP/s outside the tensor cores, dense TF32 on the tensor cores, HBM
+# bytes/s
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
+# the pipes a Krum Gram can run on: (products a dot product needs there,
+# peak FLOP/s). csrc/krum_scores.cu runs on the fp32 FMA pipe; a 3xTF32
+# Gram on the tensor pipe (hi.hi + hi.lo + lo.hi) is its yardstick
+KRUM_PIPES = {"fp32_fma": (1, PEAK_FP32_FLOPS),
+              "tf32x3_tensor": (3, PEAK_TF32_FLOPS)}
+KRUM_PIPE = "fp32_fma"
 # the integer pipes of one H100 SXM: 132 SMs at 1.98 GHz, the clock behind
 # the data sheet's fp32 figure (67e12 / (132 SMs × 128 lanes × 2)); per SM
 # and clock, 64 lanes of 32-bit integer results on each of the FMA pipe
@@ -85,6 +102,7 @@ NOT_COUNTED = {"MOV", "LDC", "LDG", "STG", "S2R", "CS2R", "EXIT", "BRA", "NOP",
                "HFMA2", "BSSY", "BSYNC"}
 KERNEL_SHAPES = [(8, 16), (130, 50), (716, 7850), (1024, 7850), (4096, 7850)]
 RTOL = 1e-4
+EXACT_SLACK = 1.1
 REPS = 20
 # the VSS intake at the bench's mnist secure-aggregation width
 # (bench.py:849-858: N = 100, sample_percent 0.70; config.py:170)
@@ -116,13 +134,16 @@ def time_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def krum_bound(n: int, d: int):
-    """(ms, what bounds it): the least time for the scores of x[n, d], the
-    larger of the fp32 operations over the fp32 peak and x read once plus the
-    scores written once over the memory rate. The operations are those of the
-    n(n-1)/2 distinct off-diagonal dot products (D is symmetric), 2·d each:
-    n(n-1)·d. The kernel computes both halves of the Gram matrix, 2·n²·d."""
-    ops_ms = 1e3 * n * (n - 1) * d / PEAK_FP32_FLOPS
+def krum_bound(n: int, d: int, pipe: str = KRUM_PIPE):
+    """(ms, what bounds it): the least time for the scores of x[n, d] on
+    `pipe` (KRUM_PIPES), the larger of its operations over its peak and x
+    read once plus the scores written once over the memory rate. The
+    operations are those of the n(n-1)/2 distinct off-diagonal dot products
+    (D is symmetric), 2·d each: n(n-1)·d, three times over for a 3xTF32
+    Gram. The kernel computes the upper Gram tiles only, the diagonal ones
+    whole."""
+    passes, peak = KRUM_PIPES[pipe]
+    ops_ms = 1e3 * passes * n * (n - 1) * d / peak
     bytes_ms = 1e3 * 4.0 * (n * d + n) / PEAK_BYTES_PER_S
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -201,6 +222,78 @@ def sass_mix(lib, kernel: str):
         if inside and m:
             mix[m.group(1)] = mix.get(m.group(1), 0) + 1
     return dict(sorted(mix.items(), key=lambda kv: -kv[1]))
+
+
+def krum_scores_fp64(x, num_adversaries: int):
+    """Krum scores of x computed in float64 throughout: the yardstick of
+    how exact the kernel and the plain version are."""
+    import torch
+
+    n = x.shape[0]
+    k = n - num_adversaries - 2
+    xd = x.double()
+    sq = (xd * xd).sum(dim=-1)
+    d = torch.clamp(sq[:, None] + sq[None, :] - 2.0 * (xd @ xd.T), min=0.0)
+    d.fill_diagonal_(float("inf"))
+    return torch.sort(d, dim=-1).values[:, :k].sum(dim=-1)
+
+
+def krum_times(x, num_adversaries: int) -> dict:
+    """Kernel B1 at x[n, d]: the wrapper's time, the kernel's alone (the C
+    interface called directly on scratch allocated once, with sq computed
+    once: three CUDA kernels, each one's device time from torch.profiler),
+    the plain version's and the fp32 cuBLAS Gram x @ x.T's (CUDA events,
+    median of REPS); its bound on the pipe it runs on and a 3xTF32
+    tensor-core Gram's; and whether two calls, and the direct launch, agree
+    bit for bit."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from biscotti_tpu_torch import _build
+    from biscotti_tpu_torch.ops import krum_cuda
+
+    n, d = x.shape
+    f, k = num_adversaries, n - num_adversaries - 2
+    kern, lib = krum_cuda.krum_scores_kernel, _build.load("krum_scores")
+    ws = krum_cuda.workspace(n, d, x.device)
+    sq = (x * x).sum(dim=-1)
+    out = torch.empty(n, dtype=torch.float32, device=x.device)
+    first = kern(x, f)
+    rc = krum_cuda.launch(lib, x, sq, out, ws, k)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"krum kernel's direct launch failed: {rc}")
+    row = {"splits": ws["splits"],
+           "bit_identical": bool(torch.equal(first, kern(x, f))),
+           "direct_launch_equal": bool(torch.equal(out, first)),
+           "ms": time_ms(lambda: kern(x, f)),
+           "kernel_only_ms": time_ms(
+               lambda: krum_cuda.launch(lib, x, sq, out, ws, k)),
+           "plain_ms": time_ms(lambda: krum_cuda.krum_scores_plain(x, f)),
+           "gram_cublas_ms": time_ms(lambda: x @ x.T)}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            krum_cuda.launch(lib, x, sq, out, ws, k)
+        torch.cuda.synchronize()
+    row["kernel_parts_ms"] = {
+        part: sum(e.self_device_time_total for e in prof.key_averages()
+                  if f"krum_{part}_kernel" in e.key) / 1e3 / 5
+        for part in ("pad", "gram", "select")}
+    row["bound_ms"], row["bound_by"] = krum_bound(n, d)
+    row["bound_pipe"] = KRUM_PIPE
+    row["tf32x3_tensor_bound_ms"] = krum_bound(n, d, "tf32x3_tensor")[0]
+    if not (row["bit_identical"] and row["direct_launch_equal"]):
+        raise AssertionError(f"krum kernel is not bit-identical from call to "
+                             f"call at ({n}, {d}): {row}")
+    return row
+
+
+def boundary_rel_gap(ref, keep: int) -> float:
+    """The relative gap of the plain scores at the accept boundary."""
+    import torch
+
+    s = torch.sort(ref).values
+    return float((s[keep] - s[keep - 1]) / s[keep])
 
 
 def rel_err(got, ref) -> float:
@@ -517,19 +610,25 @@ def main() -> int:
     with ThreadPoolExecutor(len(_build.KERNELS)) as pool:  # one nvcc each
         logs = dict(zip(_build.KERNELS, pool.map(_build.build, _build.KERNELS)))
     oncurve_sass = sass_mix(_build.library_path("oncurve"), "oncurve_kernel")
+    krum_sass = sass_mix(_build.library_path("krum_scores"), "krum_gram_kernel")
     emit("build", seconds=time.perf_counter() - t0,
          sources=[str(_build.source(k).relative_to(_build.PKG.parent))
                   for k in _build.KERNELS],
          ptxas={k: [l.strip() for l in log.splitlines()
                     if "registers" in l or "spill" in l]
                 for k, log in logs.items()},
-         oncurve_sass=oncurve_sass)
+         oncurve_sass=oncurve_sass, krum_gram_sass=krum_sass,
+         krum_gram_pipes={op: sum(c for o, c in krum_sass.items()
+                                  if o.split(".")[0] == op)
+                          for op in ("FFMA", "HMMA")}
+         if isinstance(krum_sass, dict) else krum_sass)
 
     # 3. kernel vs plain --------------------------------------------------
     kern, plain = krum_cuda.krum_scores_kernel, krum_cuda.krum_scores_plain
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def compare(case: str, x, check_accept: bool = False):
+    def compare(case: str, x, check_accept: bool = False,
+                check_exact: bool = False):
         n, d = x.shape
         f = default_num_adversaries(n)
         got, ref = kern(x, f), plain(x, f)
@@ -537,17 +636,29 @@ def main() -> int:
         err = rel_err(got, ref)
         row = {"case": case, "n": n, "d": d, "max_rel_err": err,
                "max_abs_err": float((got - ref).abs().max()),
-               "ms": time_ms(lambda: kern(x, f)),
-               "plain_ms": time_ms(lambda: plain(x, f))}
-        row["bound_ms"], row["bound_by"] = krum_bound(n, d)
+               "boundary_rel_gap": boundary_rel_gap(ref, n - f),
+               **krum_times(x, f)}
         if check_accept:
             same = accept_set(got, n - f) == accept_set(ref, n - f)
             row["accept_set_identical"] = same
+        if check_exact:  # each version against float64 throughout
+            truth = krum_scores_fp64(x, f)
+            row["kernel_vs_fp64_rel_err"] = rel_err(got.double(), truth)
+            row["plain_vs_fp64_rel_err"] = rel_err(ref.double(), truth)
+            row["rel_err_over_half_gap"] = err / (row["boundary_rel_gap"] / 2)
         emit("kernel", **row)
         if not err < RTOL:
             raise AssertionError(f"krum kernel disagrees at {case}: {err}")
         if check_accept and not row["accept_set_identical"]:
             raise AssertionError(f"krum kernel accept set differs at {case}")
+        # where fp32 itself cannot resolve the boundary (the plain
+        # version's own error exceeds half the gap), the kernel must be as
+        # exact as the plain version: 10 % covers their two summation
+        # orders
+        if check_exact and not (row["kernel_vs_fp64_rel_err"]
+                                <= EXACT_SLACK * row["plain_vs_fp64_rel_err"]):
+            raise AssertionError(f"krum kernel is less exact than its plain "
+                                 f"version at {case}")
         return row
 
     for n, d in KERNEL_SHAPES:
@@ -559,6 +670,11 @@ def main() -> int:
     x = torch.randn(140, 48, generator=gen, device=dev)
     x[100:] += 25.0  # 40 outliers, as tests/test_krum_pallas.py
     compare("poison_cluster_140x48", x, check_accept=True)
+    # rows that share one large mean: D ~ 39 next to |x|^2 ~ 7850, so
+    # sq_i + sq_j - 2G cancels most of its digits
+    x = 0.05 * torch.randn(716, 7850, generator=gen, device=dev) \
+        + torch.randn(1, 7850, generator=gen, device=dev)
+    compare("cancellation_716x7850", x, check_accept=True, check_exact=True)
 
     # 4. main path ------------------------------------------------------
     cfg = BiscottiConfig(dataset="mnist", num_nodes=1024, sample_percent=0.70,
@@ -629,16 +745,12 @@ def main() -> int:
     cidx, batch_idx, noise, keep = draws
     _, noised = sim.local_updates(w, cidx, batch_idx, noise)
     got, ref = kern(noised, f), plain(noised, f)
-    scores = torch.sort(ref).values
     main_kernel = {
         "max_abs_err": float((got - ref).abs().max()),
         "max_rel_err": rel_err(got, ref),
         "accept_set_identical": accept_set(got, s - f) == accept_set(ref, s - f),
-        "boundary_rel_gap": float((scores[s - f] - scores[s - f - 1]) / scores[s - f]),
-        "ms": time_ms(lambda: kern(noised, f)),
-        "plain_ms": time_ms(lambda: plain(noised, f))}
-    main_kernel["bound_ms"], main_kernel["bound_by"] = krum_bound(
-        s, sim.num_params)
+        "boundary_rel_gap": boundary_rel_gap(ref, s - f),
+        **krum_times(noised, f)}
     gpu = sim.round_step_from_draws(w, stake, *draws)
     cpu_sim = Simulator(cfg, device="cpu")
     cpu = cpu_sim.round_step_from_draws(w.cpu(), stake.cpu(),
@@ -676,7 +788,9 @@ def main() -> int:
         "max_abs_err": main_kernel["max_abs_err"],
         "ms": main_kernel["ms"], "plain_ms": main_kernel["plain_ms"],
         "bound_ms": main_kernel["bound_ms"], "bound_by": main_kernel["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None, "bound_pipe": main_kernel["bound_pipe"],
+        "kernel_only_ms": main_kernel["kernel_only_ms"],
+        "gram_cublas_ms": main_kernel["gram_cublas_ms"]}, {
         "name": "oncurve_validate", "route": "cuda",
         "source": "biscotti_tpu_torch/csrc/oncurve.cu",
         "replaces": "biscotti_tpu/crypto/kernels/pallas_validate.py:34",

@@ -6,7 +6,8 @@ conftest (which imports JAX):
     python -m pytest -m cuda --noconftest tests/test_torch_cuda.py -q
 
 Tolerance: rtol 1e-4 on Krum scores, as tests/test_krum_pallas.py holds the
-TPU kernel (the kernel and the plain version sum in other orders). The crypto
+TPU kernel (the kernel's fp32 Gram and the plain version's matmul sum in
+other orders); integer-valued rows are exact on both, bit for bit. The crypto
 plane is exact: on-curve masks equal, limb tensors equal bit for bit.
 """
 
@@ -40,7 +41,8 @@ def _rel_err(a, b):
 
 
 @pytest.mark.parametrize("n,d", [(5, 3), (8, 16), (100, 64), (130, 50),
-                                 (511, 33), (1056, 70), (2000, 257)])
+                                 (511, 33), (1056, 70), (2000, 257),
+                                 (716, 7850), (4096, 7850)])
 def test_kernel_matches_plain(dev, n, d):
     gen = torch.Generator(device=dev).manual_seed(n)
     x = torch.randn(n, d, generator=gen, device=dev)
@@ -67,6 +69,64 @@ def test_kernel_duplicate_ties_and_accept_set(dev):
     assert torch.equal(got, krum_cuda.krum_scores_plain(xi, f))
     mask = krum_accept_mask(xi, f)
     assert torch.equal(mask.cpu(), krum_accept_mask(xi.cpu(), f))
+
+
+@pytest.mark.parametrize("n,d", [(716, 7850), (4096, 7850)])
+def test_kernel_is_bit_identical_across_calls(dev, n, d):
+    # split-K partials sum in a fixed order, with no float atomics: the
+    # verifiers of one cluster compute the same accept set
+    gen = torch.Generator(device=dev).manual_seed(n + 1)
+    x = torch.randn(n, d, generator=gen, device=dev)
+    f = default_num_adversaries(n)
+    first = krum_cuda.krum_scores_kernel(x, f)
+    assert torch.equal(first, krum_cuda.krum_scores_kernel(x, f))
+
+
+def test_kernel_on_cancellation_heavy_rows(dev):
+    # rows that share one large mean: D = sq_i + sq_j - 2G cancels most of
+    # its digits, and a Gram whose sums lose bits in one direction (the
+    # tensor cores' truncation, even at 3xTF32) is 100x off. fp32 itself
+    # barely resolves this accept boundary (the plain version's own error is
+    # about the gap), so the kernel must give the plain accept set and be as
+    # exact as the plain version against float64 (10 %: two summation orders)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n, d = 716, 7850
+    x = 0.05 * torch.randn(n, d, generator=gen, device=dev) \
+        + torch.randn(1, d, generator=gen, device=dev)
+    f = default_num_adversaries(n)
+    got = krum_cuda.krum_scores_kernel(x, f)
+    ref = krum_cuda.krum_scores_plain(x, f)
+    xd = x.double()
+    sq = (xd * xd).sum(-1)
+    dist = torch.clamp(sq[:, None] + sq[None, :] - 2 * xd @ xd.T, min=0)
+    dist.fill_diagonal_(float("inf"))
+    truth = torch.sort(dist, dim=-1).values[:, :n - f - 2].sum(-1)
+    assert _rel_err(got, ref) < RTOL
+    assert _rel_err(got.double(), truth) <= 1.1 * _rel_err(ref.double(), truth)
+    order = lambda v: torch.sort(v, stable=True).indices[:n - f]
+    assert set(order(got).tolist()) == set(order(ref).tolist())
+
+
+def test_pad_kernel_copies_x_and_zero_pads(dev):
+    # the Gram reads a 16-byte-aligned copy of x: a row at d = 7850 is
+    # 31,400 bytes, not a multiple of 16; the padding must be zero
+    from biscotti_tpu_torch import _build
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for n, d in ((130, 50), (716, 7850)):
+        x = torch.randn(n, d, generator=gen, device=dev)
+        ws = krum_cuda.workspace(n, d, dev)
+        ws["xp"].fill_(float("nan"))
+        out = torch.empty(n, device=dev)
+        rc = krum_cuda.launch(_build.load("krum_scores"), x, (x * x).sum(-1),
+                              out, ws, n - default_num_adversaries(n) - 2)
+        torch.cuda.synchronize()
+        assert rc == 0
+        assert ws["xp"].shape == (ws["n_pad"], ws["d_pad"])
+        assert torch.equal(ws["xp"][:n, :d], x)
+        assert not ws["xp"][n:].any() and not ws["xp"][:, d:].any()
+        assert torch.equal(out, krum_cuda.krum_scores_kernel(
+            x, default_num_adversaries(n)))
 
 
 def test_auto_dispatch_window(dev):

@@ -4,7 +4,11 @@ The cases of tests/test_krum_pallas.py, held against both the reference's
 XLA path (`krum_scores`) and its Pallas kernel (`krum_scores_pallas`, which
 runs in interpret mode on the CPU, as that file runs it), at rtol 1e-4 on
 scores; accept sets must be identical. On a CPU tensor the kernel wrapper
-computes its plain version and never counts a launch.
+computes its plain version and never counts a launch. The Hopper kernel's own
+arithmetic (its split-K partial Grams summed in split order, the clamp, the
+31-step bisection select and the tie rule) is modelled on the CPU by
+`_kernel_order_scores` and held to the same cases, a cancellation-heavy one
+included.
 """
 
 import numpy as np
@@ -44,11 +48,39 @@ def _port_scores(x, f):
             krum_cuda.krum_scores_kernel(t, f).numpy()]
 
 
+def _kernel_order_scores(x: np.ndarray, f: int, sms: int = 132) -> np.ndarray:
+    """csrc/krum_scores.cu's arithmetic on the CPU: fp32 partial Grams over
+    `plan`'s split of the padded features, summed in split order; D =
+    (sq_i + sq_j) - 2G kept where > 0, the diagonal +inf; the exact k-th
+    smallest by the 31-step bisection on the float bits; the tie rule."""
+    t = torch.from_numpy(x)
+    n, d = t.shape
+    _, d_pad, _, splits = krum_cuda.plan(n, d, sms)
+    kt = d_pad // krum_cuda.K_TILE
+    edges = [min(d, s * kt // splits * krum_cuda.K_TILE) for s in range(splits + 1)]
+    g = sum((t[:, a:b] @ t[:, a:b].T for a, b in zip(edges, edges[1:])),
+            torch.zeros(n, n))
+    sq = (t * t).sum(-1)
+    dist = (sq[:, None] + sq[None, :]) - 2 * g
+    dist = torch.where(dist > 0, dist, torch.zeros(()))
+    dist.fill_diagonal_(float("inf"))
+    k = n - f - 2
+    bits = dist.view(torch.int32)
+    ans = torch.zeros(n, dtype=torch.int32)
+    for step in range(31):
+        cand = ans | (1 << (30 - step))
+        ans = torch.where((bits < cand[:, None]).sum(-1) < k, cand, ans)
+    below = bits < ans[:, None]
+    kth = ans.view(torch.float32)
+    return (torch.where(below, dist, torch.zeros(())).sum(-1)
+            + (k - below.sum(-1)) * kth).numpy()
+
+
 def _check_against_reference(x):
     f = default_num_adversaries(x.shape[0])
     refs = [np.asarray(jkrum_scores(jnp.asarray(x), f)),
             np.asarray(krum_scores_pallas(jnp.asarray(x), f))]
-    for got in _port_scores(x, f):
+    for got in _port_scores(x, f) + [_kernel_order_scores(x, f)]:
         for ref in refs:
             assert _rel_err(ref, got) < RTOL
 
@@ -65,6 +97,15 @@ def test_scores_with_duplicate_updates_tie_handling():
     _check_against_reference(x)
 
 
+def test_scores_on_cancellation_heavy_rows():
+    # rows that share one large mean: sq_i + sq_j - 2G cancels most of its
+    # digits; the kernel's split-K order keeps fp32 accuracy
+    rng = np.random.default_rng(8)
+    x = (0.05 * rng.normal(size=(300, 2000))
+         + rng.normal(size=(1, 2000))).astype(np.float32)
+    _check_against_reference(x)
+
+
 def test_accept_set_matches_reference_on_poison_cluster():
     rng = np.random.default_rng(3)
     n, d = 140, 48
@@ -75,6 +116,8 @@ def test_accept_set_matches_reference_on_poison_cluster():
     got = krum_accept_mask(torch.from_numpy(x), f).numpy()
     assert np.array_equal(ref, got)
     assert not got[100:].any()
+    kernel = np.argsort(_kernel_order_scores(x, f), kind="stable")[:n - f]
+    assert np.array_equal(np.sort(kernel), np.nonzero(ref)[0])
 
 
 @pytest.mark.parametrize("dup_rows", [
@@ -93,6 +136,7 @@ def test_exact_accept_set_on_duplicate_ties(dup_rows):
     f = default_num_adversaries(n)
     scores = krum_scores(torch.from_numpy(x), f).numpy()
     assert np.sum(scores == scores[dup_rows[0]]) >= len(dup_rows)
+    assert np.array_equal(_kernel_order_scores(x, f), scores)  # exact
     ref = np.asarray(jkrum_accept_mask(jnp.asarray(x), f))
     got = krum_accept_mask(torch.from_numpy(x), f)
     assert np.array_equal(ref, got.numpy())
@@ -120,6 +164,17 @@ def test_cpu_tensors_never_launch_the_kernel():
         np.testing.assert_allclose(krum_cuda.krum_scores_kernel(x, f).numpy(),
                                    ref, rtol=1e-6)
     assert krum_cuda.krum_scores_kernel.launches == 0
+
+
+@pytest.mark.parametrize("n,d,plan", [
+    (716, 7850, (768, 7856, 21, 12)),    # the main path: d split 12 ways
+    (1024, 7850, (1024, 7856, 36, 7)),
+    (4096, 7850, (4096, 7856, 528, 1)),  # 528 tiles fill the card unsplit
+    (130, 50, (256, 64, 3, 4)),          # at most one k-tile a split
+    (5, 3, (128, 16, 1, 1)),
+])
+def test_kernel_plan(n, d, plan):
+    assert krum_cuda.plan(n, d, sms=132) == plan
 
 
 def test_window_mirrors_reference():
