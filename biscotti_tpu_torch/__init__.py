@@ -13,6 +13,10 @@ Slice 2 is the device crypto plane (`crypto/kernels/`: limb field, Edwards
 group, MSM, fixed-base, grid validation, Shamir recovery), with the
 on-curve validator as a hand-written Hopper kernel
 (`crypto/kernels/cuda_validate.py` + `csrc/oncurve.cu`).
+Slice 3 is the rest of the single-device simulator (the CNN families,
+every defense, the mcmc13 mechanism, `run_scan`, the metrics hook), the
+per-peer `Trainer` (`models/trainer.py`) and the device-round bench
+(`bench.py`).
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`
 (`device.resolve_device`); with no GPU and no explicit CPU choice they raise.

@@ -1,7 +1,8 @@
-"""Slim copy of `biscotti_tpu/config.py`: the fields the simulator reads.
+"""Slim copy of `biscotti_tpu/config.py`: the fields the simulator and the
+per-peer `Trainer` read.
 
-The keyword names and defaults are the reference's, so one dict builds both
-packages' configs. `FaultPlan` keeps only the frame-drop subset
+The keyword names, defaults and construction checks are the reference's,
+so one dict builds both packages' configs. `FaultPlan` keeps only the frame-drop subset
 (`seed`, `drop`, `enabled`) that the simulator mirrors
 (`biscotti_tpu/runtime/faults.py::FaultPlan`).
 """
@@ -15,7 +16,9 @@ from dataclasses import dataclass, field
 
 class Defense(str, enum.Enum):
     """Poisoning-defense selection (ref: DistSys/main.go:57 POISON_DEFENSE).
-    The port's simulator implements KRUM and NONE so far."""
+    The port's simulator takes every member; as in the reference's
+    simulator, TRIMMED_MEAN, NONE and ENSEMBLE accept every update (the
+    ensemble lives in the live runtime's trust ledger)."""
 
     NONE = "NONE"
     KRUM = "KRUM"
@@ -48,7 +51,9 @@ class BiscottiConfig:
 
     num_miners: int = 3
     num_verifiers: int = 3
+    num_noisers: int = 2
 
+    secure_agg: bool = True
     noising: bool = True
     verification: bool = True
 
@@ -64,13 +69,33 @@ class BiscottiConfig:
     stake_unit: int = 5
     max_iterations: int = 100
     defense: Defense = Defense.KRUM
+    roni_threshold: float = 0.02  # RONI reject score (main.go:203-231)
+    # per-tail trim for defense=TRIMMED_MEAN; must exceed the Byzantine
+    # fraction (Yin'18)
+    trim_fraction: float = 0.35
     convergence_error: float = 0.05
     fault_plan: FaultPlan = field(default_factory=FaultPlan)
 
     logreg_alpha: float = 1e-2
     grad_clip: float = 100.0
     batch_size: int = 10
+    noise_presample_iters: int = 100  # DP noise bank depth (client_obj.py:59-67)
     seed: int = 0
+
+    def __post_init__(self) -> None:
+        # the reference's checks (biscotti_tpu/config.py:414-424): order
+        # statistics cannot be taken over additive secret shares
+        if self.defense == Defense.TRIMMED_MEAN and self.secure_agg:
+            raise ValueError(
+                "defense=TRIMMED_MEAN is incompatible with secure_agg: "
+                "coordinate-wise order statistics cannot be computed over "
+                "additive secret shares. Run with secure_agg=0, or choose "
+                "KRUM/MULTIKRUM, which are verifier-side accept masks and "
+                "compose with secure-agg.")
+        if not (0.0 <= self.trim_fraction < 0.5) \
+                and self.defense == Defense.TRIMMED_MEAN:
+            raise ValueError(
+                f"trim_fraction={self.trim_fraction} must be in [0, 0.5)")
 
     @property
     def num_samples(self) -> int:
@@ -87,16 +112,22 @@ class BiscottiConfig:
         p.add_argument("--model", dest="model_name", type=str, default="")
         p.add_argument("-na", "--num-miners", type=int, default=3)
         p.add_argument("-nv", "--num-verifiers", type=int, default=3)
+        p.add_argument("-nn", "--num-noisers", type=int, default=2)
+        p.add_argument("-sa", "--secure-agg", type=int, default=1)
         p.add_argument("-np", "--noising", type=int, default=1)
         p.add_argument("-vp", "--verification", type=int, default=1)
         p.add_argument("-ep", "--epsilon", type=float, default=1.0)
-        # only what the port implements so far (ROADMAP.md A4, item 8)
         p.add_argument("--dp-mechanism", type=str, default="gaussian",
-                       choices=["gaussian"])
+                       choices=["gaussian", "mcmc13"],
+                       help="gaussian = Abadi-16 presample (ref default); "
+                            "mcmc13 = Song&Sarwate'13 (ref diffPriv13 branch)")
         p.add_argument("-po", "--poison-fraction", type=float, default=0.0)
         p.add_argument("-ns", "--sample-percent", type=float, default=70.0)
         p.add_argument("--defense", type=str, default="KRUM",
-                       choices=[Defense.KRUM.value, Defense.NONE.value])
+                       choices=[d.value for d in Defense])
+        p.add_argument("--trim-fraction", type=float, default=0.35,
+                       help="per-tail trim for defense=TRIMMED_MEAN "
+                            "(must exceed the Byzantine fraction)")
         p.add_argument("--max-iterations", type=int, default=100)
         p.add_argument("--convergence-error", type=float, default=0.05)
         p.add_argument("--seed", type=int, default=0)
@@ -109,10 +140,13 @@ class BiscottiConfig:
         return cls(
             num_nodes=ns.num_nodes, dataset=ns.dataset,
             model_name=ns.model_name, num_miners=ns.num_miners,
-            num_verifiers=ns.num_verifiers, noising=bool(ns.noising),
+            num_verifiers=ns.num_verifiers, num_noisers=ns.num_noisers,
+            secure_agg=bool(ns.secure_agg),
+            noising=bool(ns.noising),
             verification=bool(ns.verification), epsilon=ns.epsilon,
             dp_mechanism=ns.dp_mechanism, poison_fraction=ns.poison_fraction,
             sample_percent=ns.sample_percent / 100.0,
-            defense=Defense(ns.defense), max_iterations=ns.max_iterations,
+            defense=Defense(ns.defense), trim_fraction=ns.trim_fraction,
+            max_iterations=ns.max_iterations,
             convergence_error=ns.convergence_error, seed=ns.seed,
             fault_plan=FaultPlan(seed=ns.fault_seed, drop=ns.fault_drop))

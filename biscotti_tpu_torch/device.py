@@ -20,3 +20,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "no CUDA device is available; the port runs on the GPU unless "
             "the caller asks for the CPU explicitly (device='cpu')")
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU), so a host
+    clock read after it covers that work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

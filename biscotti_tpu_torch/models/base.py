@@ -4,7 +4,10 @@ The framework's wire unit is one flat float32 vector. The reference flattens
 its parameter dict with `ravel_pytree`, which orders dict leaves by sorted
 key and ravels each leaf row-major. The port reads and writes exactly that
 layout: a dense layer `{"b": [k], "w": [d_in, k]}` is `b` followed by `w`,
-row-major, `[d_in, d_out]`.
+row-major, `[d_in, d_out]`; a conv layer is `b[O]` then `w[H, W, I, O]`
+(HWIO), and nested layers come in sorted-key order (`c1.b, c1.w, c2.b, ...`).
+A `Model` lists those leaves (`Leaf`: dotted name, shape, init law), so
+`flat_init` and `unravel` read one table.
 
 Every function here is pure in its tensors, so `torch.func.vmap` and
 `torch.func.grad` batch it over contributors (see models/trainer.py).
@@ -12,10 +15,57 @@ Every function here is pure in its tensors, so `torch.func.vmap` and
 
 from __future__ import annotations
 
+import contextlib
+import math
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Dict, Tuple
 
 import torch
+
+
+@dataclass(frozen=True)
+class Leaf:
+    """One parameter leaf of the reference's pytree, in ravel order. `law`
+    is its init (`biscotti_tpu/models/zoo.py`): "zeros" (biases, logreg),
+    "uniform" (dense weights, U(±1/√d_in), d_in = shape[0]) or "normal"
+    (HWIO conv weights, N(0, 1)/√fan_in, fan_in = H·W·I)."""
+
+    name: str
+    shape: Tuple[int, ...]
+    law: str = "zeros"
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+
+def unravel(leaves: Tuple[Leaf, ...], flat_w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """{name: view of flat_w in the leaf's shape}: slices of the one flat
+    vector, so `torch.func.grad` and `vmap` see through them."""
+    out, at = {}, 0
+    for leaf in leaves:
+        out[leaf.name] = flat_w[at:at + leaf.size].reshape(leaf.shape)
+        at += leaf.size
+    return out
+
+
+@contextlib.contextmanager
+def fp32_math():
+    """A context in which float32 math stays float32 on the card: TF32 off
+    for matmuls, which is where the CNNs' convolutions run (models/zoo.py),
+    and for cuDNN. Entry points wrap whole steps and evaluations in it, so
+    the backward passes that `torch.func.grad` runs are covered too; the
+    caller's settings come back on exit."""
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(
+                enabled=True, benchmark=torch.backends.cudnn.benchmark,
+                deterministic=torch.backends.cudnn.deterministic,
+                allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
 
 
 @dataclass(frozen=True)
@@ -28,6 +78,34 @@ class Model:
     apply_flat: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
     # (flat_w, x[B, d_in], y[B]) -> mean scalar loss
     loss_flat: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+    # the reference's leaves in ravel order (sizes sum to num_params)
+    leaves: Tuple[Leaf, ...] = ()
+    # floats one input row holds in the forward's widest tensor (0: the
+    # logits; a CNN's first im2col columns); sizes batched evaluations such
+    # as RONI's
+    act_floats: int = 0
+
+    def flat_init(self, gen: torch.Generator) -> torch.Tensor:
+        """Random weights under the reference's init laws, in the flat
+        layout (counterpart of `biscotti_tpu/models/base.py:36-37`), drawn
+        from `gen` on its device. The draws are the port's own: the laws
+        match the reference's, the numbers do not."""
+        parts = []
+        for leaf in self.leaves:
+            if leaf.law == "zeros":
+                v = torch.zeros(leaf.size, device=gen.device)
+            elif leaf.law == "uniform":
+                s = 1.0 / math.sqrt(leaf.shape[0])
+                v = (2.0 * torch.rand(leaf.size, generator=gen,
+                                      device=gen.device) - 1.0) * s
+            elif leaf.law == "normal":
+                fan_in = math.prod(leaf.shape[:-1])
+                v = torch.randn(leaf.size, generator=gen,
+                                device=gen.device) / math.sqrt(fan_in)
+            else:
+                raise ValueError(f"unknown init law {leaf.law!r}")
+            parts.append(v)
+        return torch.cat(parts)
 
     def error_flat(self, flat_w: torch.Tensor, x: torch.Tensor,
                    y: torch.Tensor) -> torch.Tensor:

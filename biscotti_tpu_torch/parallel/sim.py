@@ -3,11 +3,15 @@
 
 One federated round for all peers at once:
 
-    draws    = draw_round(gen, it)   — contributors, minibatch rows, DP noise,
-                                       dropped frames
+    draws    = draw_round(gen, it)   — contributors, minibatch rows, DP noise
+                                       (Gaussian or mcmc13), dropped frames
     deltas   = vmap(local_step)      — S contributors' SGD steps
-    mask     = Krum                  — verifier committee (Hopper kernel)
-    w'       = w + Σ maskᵢ·deltaᵢ    — miner aggregation (ref honest.go:360-375)
+    mask     = defense_mask          — verifier committee: Krum, Multi-Krum
+                                       (both on the Hopper kernel B1 inside
+                                       its window), FoolsGold, RONI, or
+                                       accept-all
+    w'       = w + Σ maskᵢ·deltaᵢ    — miner aggregation (ref honest.go:360-375),
+                                       or the trimmed mean
     stake'   = ±STAKE_UNIT scatter   — ledger bookkeeping (ref honest.go:414-419)
 
 The round is split in two: `draw_round` makes every random choice from the
@@ -17,12 +21,14 @@ streams torch does not reproduce; tests hold the port to the reference by
 feeding the reference's own draws to `round_step_from_draws`.
 
 The peer stack x[N, rows, d] lives on the device; a round gathers only its
-S·B minibatch rows from it.
+S·B minibatch rows from it. `run_scan` loops over the rounds with nothing
+read back to the host until the end (the reference compiles that loop into
+one `lax.scan`). Steps and evaluations run inside `fp32_math`, so
+the CNN families' convolutions stay float32 on the card.
 """
 
 from __future__ import annotations
 
-import hashlib
 import time
 from dataclasses import dataclass
 from typing import List, Optional, Tuple, Union
@@ -32,12 +38,17 @@ import torch
 
 from biscotti_tpu_torch.config import BiscottiConfig, Defense
 from biscotti_tpu_torch.data import datasets as ds
-from biscotti_tpu_torch.device import resolve_device
-from biscotti_tpu_torch.models.base import Model
-from biscotti_tpu_torch.models.trainer import local_step_fn, sample_batch
+from biscotti_tpu_torch.device import resolve_device, synchronize
+from biscotti_tpu_torch.models.base import Model, fp32_math
+from biscotti_tpu_torch.models.trainer import (local_step_fn, sample_batch,
+                                               stream_seed)
 from biscotti_tpu_torch.models.zoo import model_for_dataset
 from biscotti_tpu_torch.ops import dp_noise
 from biscotti_tpu_torch.ops.krum import default_num_adversaries, krum_accept_mask
+from biscotti_tpu_torch.ops.robust_agg import (foolsgold_accept_mask,
+                                               multikrum_accept_mask,
+                                               trimmed_mean_aggregate)
+from biscotti_tpu_torch.ops.roni import roni_accept_mask
 from biscotti_tpu_torch.tools.verdicts import poisoned_ids
 
 
@@ -51,37 +62,42 @@ class RoundLog:
     timestamp: float
     accepted: int = 0
 
-
-def _check_ported(defense: Defense) -> None:
-    if defense not in (Defense.KRUM, Defense.NONE):
-        raise NotImplementedError(
-            f"defense {defense.value} is not ported to biscotti_tpu_torch "
-            "yet (ROADMAP.md Queue A, item 8)")
+    def csv(self) -> str:
+        return f"{self.iteration},{self.error:.6f},{self.timestamp:.6f}"
 
 
-def defense_mask(defense: Defense, noised: torch.Tensor,
+def defense_mask(defense: Defense, model: Model, w: torch.Tensor,
+                 noised: torch.Tensor, x_val: torch.Tensor,
+                 y_val: torch.Tensor, roni_threshold: float,
                  num_adversaries: int) -> torch.Tensor:
-    """Verifier-committee accept mask over the round's noised updates
-    (KRUM or NONE so far)."""
-    _check_ported(defense)
+    """Verifier-committee accept mask over the round's noised updates.
+    TRIMMED_MEAN is an aggregation rule, not a mask (see
+    masked_aggregate), and ENSEMBLE's trust ledger lives in the live
+    runtime, so both accept every update here, like NONE, as the
+    reference's simulator does (sim.py:63-84)."""
     if defense == Defense.KRUM:
         return krum_accept_mask(noised, num_adversaries)
+    if defense == Defense.MULTIKRUM:
+        return multikrum_accept_mask(noised, num_adversaries)
+    if defense == Defense.FOOLSGOLD:
+        return foolsgold_accept_mask(noised)
+    if defense == Defense.RONI:
+        return roni_accept_mask(model, w, noised, x_val, y_val, roni_threshold)
     return torch.ones(noised.shape[0], dtype=torch.bool, device=noised.device)
 
 
 def masked_aggregate(mask: torch.Tensor, deltas: torch.Tensor,
-                     noised: torch.Tensor, dp_in_model: bool) -> torch.Tensor:
+                     noised: torch.Tensor, dp_in_model: bool,
+                     defense: Defense = Defense.KRUM,
+                     trim_fraction: float = 0.35) -> torch.Tensor:
     """Miner aggregation: the sum of the accepted RAW deltas, or of the
     noised ones in dp_in_model mode, where the noise is part of the update
-    (ref: honest.go:172-179)."""
+    (ref: honest.go:172-179). Under TRIMMED_MEAN the coordinate-wise
+    trimmed aggregate replaces the sum; the mask is all-ones there."""
     src = noised if dp_in_model else deltas
+    if defense == Defense.TRIMMED_MEAN:
+        return trimmed_mean_aggregate(src, trim_fraction)
     return torch.where(mask[:, None], src, torch.zeros_like(src)).sum(dim=0)
-
-
-def _round_seed(seed: int, stream: str, it: int) -> int:
-    """A 63-bit generator seed, pure in (seed, stream, round)."""
-    h = hashlib.sha256(f"biscotti_tpu_torch/{seed}/{stream}/{it}".encode())
-    return int.from_bytes(h.digest()[:8], "little") >> 1
 
 
 class Simulator:
@@ -89,18 +105,19 @@ class Simulator:
 
     def __init__(self, cfg: BiscottiConfig,
                  device: Optional[Union[str, torch.device]] = None,
-                 model: Optional[Model] = None):
+                 model: Optional[Model] = None, metrics=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        # optional telemetry registry (telemetry.MetricsRegistry): run()
+        # then feeds the reference's per-round histogram and height/error
+        # gauges (the CLI's --metrics-out)
+        self.metrics = metrics
         self.model = model or model_for_dataset(cfg.dataset, cfg.model_name)
         self.mode = "sgd" if self.model.name == "logreg" else "grad"
         self.num_params = self.model.num_params
-        if cfg.dp_mechanism != "gaussian":
-            raise NotImplementedError(
-                f"dp_mechanism {cfg.dp_mechanism!r} is not ported yet "
-                "(ROADMAP.md Queue A, item A4: mcmc13)")
+        if cfg.dp_mechanism not in ("gaussian", "mcmc13"):
+            raise ValueError(f"unknown dp_mechanism {cfg.dp_mechanism!r}")
         self.defense = cfg.defense if cfg.verification else Defense.NONE
-        _check_ported(self.defense)
 
         n = cfg.num_nodes
         poisoned = poisoned_ids(n, cfg.poison_fraction)
@@ -127,37 +144,50 @@ class Simulator:
                              alpha=cfg.logreg_alpha)
         self._batched_step = torch.func.vmap(step, in_dims=(None, 0, 0))
         self._use_noise = cfg.noising or cfg.dp_in_model
-        self._noise_scale = dp_noise.sigma_for(
-            cfg.epsilon if self._use_noise else 0.0, cfg.delta)
+        self._noise_eps = cfg.epsilon if self._use_noise else 0.0
+        self._noise_scale = dp_noise.sigma_for(self._noise_eps, cfg.delta)
         self._noise_alpha = cfg.logreg_alpha if self.mode == "sgd" else 1.0
         self._drop_p = cfg.fault_plan.drop if cfg.fault_plan.enabled else 0.0
+        if self._drop_p > 0.0 and self.defense == Defense.TRIMMED_MEAN:
+            raise ValueError(
+                "fault_plan.drop is not supported with defense=TRIMMED_MEAN "
+                "in the simulator: the trimmed aggregate has no per-update "
+                "mask to carry the drops")
 
     # ------------------------------------------------------------- the round
 
-    def draw_round(self, gen: torch.Generator, it: int) -> Tuple[torch.Tensor, ...]:
+    def draw_round(self, gen: torch.Generator, it: int,
+                   seed: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
         """Every random choice of round `it`, re-seeding `gen` so the draws
-        are pure in (seed, it) like the reference's fold_in keys. Returns
-        cidx[S] (contributors, without replacement), batch_idx[S, B] (each
-        row's minibatch, without replacement), noise[S, d] (DP noise, zeros
-        when noising is off) and keep[S] (False where the fault plan drops the
-        contributor's frame, drawn from the fault seed)."""
+        are pure in (seed, it) like the reference's fold_in keys; `seed`
+        overrides cfg.seed. Returns cidx[S] (contributors, without
+        replacement), batch_idx[S, B] (each row's minibatch, without
+        replacement), noise[S, d] (DP noise, already scaled by −α/b; zeros
+        when noising is off) and keep[S] (False where the fault plan drops
+        the contributor's frame, drawn from the fault seed)."""
         cfg = self.cfg
         n, s = cfg.num_nodes, cfg.num_samples
-        gen.manual_seed(_round_seed(cfg.seed, "round", it))
+        gen.manual_seed(stream_seed(cfg.seed if seed is None else seed,
+                                    "round", it))
         if s >= n:
             cidx = torch.arange(n, device=self.device)
         else:
             cidx = torch.randperm(n, generator=gen, device=self.device)[:s]
         s = cidx.shape[0]
         batch_idx = sample_batch(gen, self.rows, cfg.batch_size, s)
-        if self._use_noise:
+        if self._use_noise and cfg.dp_mechanism == "mcmc13":
+            # one exact Song&Sarwate'13 row a contributor, scaled as the
+            # Gaussian bank is (ref: sim.py:189-199)
+            noise = (-self._noise_alpha / cfg.batch_size) * dp_noise.knorm_draw(
+                gen, self._noise_eps, s, self.num_params)
+        elif self._use_noise:
             noise = dp_noise.round_noise(gen, s, self.num_params,
                                          self._noise_scale, cfg.batch_size,
                                          self._noise_alpha)
         else:
             noise = torch.zeros(s, self.num_params, device=self.device)
         if self._drop_p > 0.0:
-            gen.manual_seed(_round_seed(cfg.fault_plan.seed, "drop", it))
+            gen.manual_seed(stream_seed(cfg.fault_plan.seed, "drop", it))
             keep = torch.rand(s, generator=gen, device=self.device) >= self._drop_p
         else:
             keep = torch.ones(s, dtype=torch.bool, device=self.device)
@@ -169,8 +199,9 @@ class Simulator:
         """(deltas[S, d], noised[S, d]): each contributor's step on its own
         minibatch, and the copy the verifiers see."""
         rows = cidx[:, None]
-        deltas = self._batched_step(w, self.x[rows, batch_idx],
-                                    self.y[rows, batch_idx])
+        with fp32_math():
+            deltas = self._batched_step(w, self.x[rows, batch_idx],
+                                        self.y[rows, batch_idx])
         return deltas, deltas + noise
 
     def round_step_from_draws(self, w, stake, cidx, batch_idx, noise, keep):
@@ -178,20 +209,25 @@ class Simulator:
         err). A dropped frame (keep False) was scored by the verifiers but
         joins no aggregate and moves no stake."""
         cfg = self.cfg
-        deltas, noised = self.local_updates(w, cidx, batch_idx, noise)
-        mask = defense_mask(self.defense, noised,
-                            default_num_adversaries(cidx.shape[0]))
-        unit = torch.full_like(cidx, cfg.stake_unit, dtype=stake.dtype)
-        delta_stake = torch.where(mask, unit, -unit)
-        mask = mask & keep
-        delta_stake = torch.where(keep, delta_stake, torch.zeros_like(unit))
-        w_next = w + masked_aggregate(mask, deltas, noised, cfg.dp_in_model)
-        stake_next = stake.index_add(0, cidx, delta_stake)
-        err = self.model.error_flat(w_next, self.x_val, self.y_val)
+        with fp32_math():
+            deltas, noised = self.local_updates(w, cidx, batch_idx, noise)
+            mask = defense_mask(self.defense, self.model, w, noised,
+                                self.x_val, self.y_val, cfg.roni_threshold,
+                                default_num_adversaries(cidx.shape[0]))
+            unit = torch.full_like(cidx, cfg.stake_unit, dtype=stake.dtype)
+            delta_stake = torch.where(mask, unit, -unit)
+            mask = mask & keep
+            delta_stake = torch.where(keep, delta_stake, torch.zeros_like(unit))
+            w_next = w + masked_aggregate(mask, deltas, noised, cfg.dp_in_model,
+                                          self.defense, cfg.trim_fraction)
+            stake_next = stake.index_add(0, cidx, delta_stake)
+            err = self.model.error_flat(w_next, self.x_val, self.y_val)
         return w_next, stake_next, mask, err
 
-    def round_step(self, w: torch.Tensor, stake: torch.Tensor, it: int):
-        return self.round_step_from_draws(w, stake, *self.draw_round(self.gen, it))
+    def round_step(self, w: torch.Tensor, stake: torch.Tensor, it: int,
+                   seed: Optional[int] = None):
+        return self.round_step_from_draws(
+            w, stake, *self.draw_round(self.gen, it, seed))
 
     # ------------------------------------------------------------------ run
 
@@ -208,30 +244,67 @@ class Simulator:
             num_rounds = self.cfg.max_iterations
         w, stake = self.init_state()
         logs: List[RoundLog] = []
+        m = self.metrics
         for it in range(num_rounds):
+            t0 = time.perf_counter()
             w, stake, mask, err = self.round_step(w, stake, it)
+            if m is not None:
+                synchronize(self.device)  # charge the round its device time
+                m.histogram("biscotti_sim_round_seconds",
+                            "simulator device-round wall clock").observe(
+                    time.perf_counter() - t0)
+                m.gauge("biscotti_sim_round_height",
+                        "simulator rounds completed").set(it + 1)
             if it % log_every == 0 or it == num_rounds - 1:
                 e = float(err)
                 logs.append(RoundLog(it, e, time.time(), int(mask.sum())))
+                if m is not None:
+                    m.gauge("biscotti_sim_error",
+                            "simulator latest test error").set(e)
                 if stop_at_convergence and e < self.cfg.convergence_error:
                     break
         return w, stake, logs
 
+    def run_scan(self, num_rounds: Optional[int] = None,
+                 seed: Optional[int] = None):
+        """All rounds with no host in the loop: the round's tensors stay on
+        the device and the errors and accept counts are read back once, at
+        the end (the reference's `lax.scan`, sim.py:315-352). `seed`
+        overrides cfg.seed without rebuilding the Simulator. Returns
+        (w, stake, errs[num_rounds], accepted[num_rounds]) with numpy
+        arrays for the last two."""
+        if num_rounds is None:
+            num_rounds = self.cfg.max_iterations
+        w, stake = self.init_state()
+        errs, accepted = [], []
+        for it in range(num_rounds):
+            w, stake, mask, err = self.round_step(w, stake, it, seed)
+            errs.append(err)
+            accepted.append(mask.sum())
+        if not errs:
+            return w, stake, np.zeros(0, np.float32), np.zeros(0, np.int64)
+        return (w, stake, torch.stack(errs).cpu().numpy(),
+                torch.stack(accepted).cpu().numpy())
+
     # --------------------------------------------------------------- metrics
 
     def test_error(self, w: torch.Tensor) -> float:
-        return float(self.model.error_flat(w.to(self.device), self.x_val, self.y_val))
+        with fp32_math():
+            return float(self.model.error_flat(w.to(self.device), self.x_val,
+                                               self.y_val))
 
     def attack_rate(self, w: torch.Tensor) -> float:
-        return float(self.model.error_flat(w.to(self.device), self.x_attack,
-                                           self.y_attack))
+        with fp32_math():
+            return float(self.model.error_flat(w.to(self.device), self.x_attack,
+                                               self.y_attack))
 
     def attack_success_rate(self, w: torch.Tensor) -> float:
         """Fraction of attack-source samples predicted as exactly the attack
         target class (the 1→7 rate)."""
         target = ds.spec(self.cfg.dataset).attack_target
-        pred = torch.argmax(self.model.apply_flat(w.to(self.device), self.x_attack),
-                            dim=-1)
+        with fp32_math():
+            logits = self.model.apply_flat(w.to(self.device), self.x_attack)
+        pred = torch.argmax(logits, dim=-1)
         return float((pred == target).to(torch.float32).mean())
 
 
@@ -250,10 +323,39 @@ def main(argv=None) -> int:
                     help="override max-iterations for the run")
     ap.add_argument("--device", default=None,
                     help="torch device; the GPU when not given")
+    ap.add_argument("--scan", action="store_true",
+                    help="run all rounds with no host read-back until the end")
+    ap.add_argument("--csv", default="",
+                    help="write iteration,error,timestamp rows here")
+    ap.add_argument("--metrics-out", default="",
+                    help="write a Prometheus text page of the run's "
+                         "telemetry (round histogram, height/error gauges) "
+                         "here; non-scan runs only")
     ns = ap.parse_args(argv)
+    if ns.metrics_out and ns.scan:
+        ap.error("--metrics-out requires a non-scan run (a --scan run reads "
+                 "nothing back per round; there are no per-round host "
+                 "observations to export)")
     cfg = BiscottiConfig.from_args(ns)
-    sim = Simulator(cfg, device=ns.device)
-    w, stake, logs = sim.run(ns.rounds or cfg.max_iterations)
+    registry = None
+    if ns.metrics_out:
+        from biscotti_tpu_torch.telemetry import MetricsRegistry
+
+        registry = MetricsRegistry()
+    sim = Simulator(cfg, device=ns.device, metrics=registry)
+    rounds = ns.rounds or cfg.max_iterations
+    if ns.scan:
+        w, stake, errs, accepted = sim.run_scan(rounds)
+        logs = [RoundLog(i, float(e), time.time(), int(a))
+                for i, (e, a) in enumerate(zip(errs, accepted))]
+    else:
+        w, stake, logs = sim.run(rounds)
+    if ns.csv:
+        with open(ns.csv, "w") as f:
+            f.write("\n".join(l.csv() for l in logs) + "\n")
+    if registry is not None:
+        with open(ns.metrics_out, "w") as f:
+            f.write(registry.render())
     print(json.dumps({
         "dataset": cfg.dataset, "nodes": cfg.num_nodes,
         "device": (torch.cuda.get_device_name(sim.device)

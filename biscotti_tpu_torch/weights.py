@@ -6,6 +6,12 @@ such a dict, or an already flat array, into the port's flat float32 tensor,
 and write it back out as numpy. They take anything numpy can read (a JAX
 array included) and import nothing of JAX.
 
+The CNN families nest their layers: mnist_cnn is `conv.b[16],
+conv.w[5,5,1,16], fc.b[10], fc.w[16384,10]`; cifar_cnn `c1, c2, f1, f2, f3`
+and lfw_cnn `c1, c2, f1, f3`, each layer `b` then `w`, conv weights HWIO and
+dense weights [d_in, d_out]. The recursive sorted-key walk below reads them
+as it reads the linear families (`models/zoo.py` lists each layout).
+
 The device crypto plane (`crypto/kernels/`) needs no converter of its own:
 its whole state is the reference's int64 limb arrays (a field element
 [..., 16], a point batch [..., 4, 16], an affine cell [..., 2, 16]) and

@@ -52,8 +52,37 @@ printed as one JSON line:
               changes); card == CPU port bit for bit on a small wave;
               host-clock times of every entry point and one
               torch.profiler window over the msm;
-  6. kernels  one line for every ported kernel (launches from phase 4 and
-              from the crypto phase's intake).
+  models      each CNN family (mnist_cnn, cifar_cnn, lfw_cnn) from flat_init
+              weights: parameter count, the forward pass and the
+              simulator's per-contributor step (S = 8, batch 10) on the
+              card against the CPU port within rtol 1e-4, the TF32
+              switches of matmuls (where the convolutions run) and cuDNN
+              as read inside the step (both must be off; the phase turns
+              both on around it), whether two steps are bit-identical;
+  defenses    one warm and 3 timed rounds of each defense (KRUM, MULTIKRUM,
+              FOOLSGOLD, RONI, TRIMMED_MEAN without secure aggregation,
+              NONE, ENSEMBLE) at the main configuration, B1 launched once a
+              round under KRUM and MULTIKRUM and never otherwise, and one
+              round's draws on the card and on the CPU port (masks and
+              stakes equal, w within rtol 1e-4);
+  cnn         the mnist CNN at the main configuration's scale (d = 164,266,
+              S = 716): 2 warm and 5 timed rounds with B1 once a round at
+              (716, 164266); B1 against its plain version on one round's
+              noised updates from flat_init weights (accept sets equal,
+              error below half the boundary gap or, where plain's own
+              error against float64 exceeds it, no less exact than plain;
+              times and bound as in phase 3); a device_trace window over 3
+              rounds (device ms a round, idle share, top kernels);
+  bench       the eight BASELINE rows through biscotti_tpu_torch.bench
+              (device_round_s each), and one round of each CNN row on the
+              card and on the CPU port from flat_init weights;
+  trainer     the per-peer Trainer on the card against the CPU port (mnist
+              softmax and mnist_cnn), one private_fun's time, and mcmc13
+              Trainers at d = 7,850 and 164,266: acceptance rate, mean row
+              norm against the law's 2d/ε (within 1 %), presample time;
+  6. kernels  one line for every ported kernel (B1's launches from phases
+              4, defenses and cnn, with its times at (716, 164266) beside
+              those at (716, 7850); B2's from the crypto phase's intake).
 
 Then the card's `name, power.limit` line as nvidia-smi prints it (the line
 the run's records are keyed by) and, last, the device JSON. Any
@@ -275,10 +304,15 @@ def krum_times(x, num_adversaries: int) -> dict:
         for _ in range(5):
             krum_cuda.launch(lib, x, sq, out, ws, k)
         torch.cuda.synchronize()
+    # per recorded launch: the profiler may not record all 5
+    parts = {part: [e for e in prof.key_averages()
+                    if f"krum_{part}_kernel" in e.key]
+             for part in ("pad", "gram", "select")}
     row["kernel_parts_ms"] = {
-        part: sum(e.self_device_time_total for e in prof.key_averages()
-                  if f"krum_{part}_kernel" in e.key) / 1e3 / 5
-        for part in ("pad", "gram", "select")}
+        part: sum(e.self_device_time_total for e in evs) / 1e3
+        / max(1, sum(e.count for e in evs)) for part, evs in parts.items()}
+    row["kernel_parts_recorded"] = {part: sum(e.count for e in evs)
+                                    for part, evs in parts.items()}
     row["bound_ms"], row["bound_by"] = krum_bound(n, d)
     row["bound_pipe"] = KRUM_PIPE
     row["tf32x3_tensor_bound_ms"] = krum_bound(n, d, "tf32x3_tensor")[0]
@@ -577,6 +611,368 @@ def crypto_phase(dev, grid: np.ndarray, a, b) -> dict:
     return row
 
 
+# the CNN families and the datasets they run on (biscotti_tpu_torch/models/zoo.py)
+CNNS = [("mnist_cnn", "mnist", 164_266), ("cifar_cnn", "cifar", 62_006),
+        ("lfw_cnn", "lfw", 133_000)]
+# eval/eval_sim_scale.py's largest row, the main configuration
+MAIN = dict(dataset="mnist", num_nodes=1024, sample_percent=0.70,
+            verification=True, noising=True, epsilon=1.0, batch_size=10,
+            poison_fraction=0.3, seed=0)
+
+
+def close_to(got, ref, rtol: float = RTOL) -> bool:
+    """got within rtol of ref, with atol rtol·max|ref| (float32 sums in
+    another order on the card)."""
+    import torch
+
+    got, ref = got.cpu(), ref.cpu()
+    return bool(torch.allclose(got, ref, rtol=rtol,
+                               atol=rtol * float(ref.abs().max())))
+
+
+def round_card_vs_cpu(card, cpu, w, stake, draws) -> dict:
+    """One round from the same weights and draws on the card and on the
+    CPU port: masks and stakes must be equal and w within RTOL."""
+    import torch
+
+    g = card.round_step_from_draws(w, stake, *draws)
+    c = cpu.round_step_from_draws(w.cpu(), stake.cpu(), *(t.cpu() for t in draws))
+    row = {"mask_equal": bool(torch.equal(g[2].cpu(), c[2])),
+           "stake_equal": bool(torch.equal(g[1].cpu(), c[1])),
+           "w_equal_within_rtol": close_to(g[0], c[0]),
+           "w_max_abs_diff": float((g[0].cpu() - c[0]).abs().max()),
+           "accepted": int(g[2].sum()), "err_card": float(g[3]),
+           "err_cpu": float(c[3])}
+    if not (row["mask_equal"] and row["stake_equal"]
+            and row["w_equal_within_rtol"]):
+        raise AssertionError(f"card and CPU rounds disagree: {row}")
+    return row
+
+
+def models_phase(dev) -> dict:
+    """Each CNN family on the card against the CPU port, from flat_init
+    weights: the forward pass and the simulator's per-contributor step
+    (S = 8, batch 10, `Simulator.local_updates`), with the TF32 switches of
+    matmuls and cuDNN on outside it: the step must turn them off itself."""
+    from dataclasses import replace
+
+    import torch
+
+    from biscotti_tpu_torch.config import BiscottiConfig
+    from biscotti_tpu_torch.models.base import fp32_math
+    from biscotti_tpu_torch.models.zoo import MODELS
+    from biscotti_tpu_torch.parallel.sim import Simulator
+
+    t_phase = time.perf_counter()
+    rows = []
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for family, dataset, params in CNNS:
+            model = MODELS[family](dataset)
+            seen = []
+
+            def loss(w, x, y, _loss=model.loss_flat, _seen=seen):
+                _seen.append((torch.backends.cuda.matmul.allow_tf32,
+                              torch.backends.cudnn.allow_tf32))
+                return _loss(w, x, y)
+
+            probe = replace(model, loss_flat=loss)
+            cfg = BiscottiConfig(dataset=dataset, model_name=family,
+                                 num_nodes=14, noising=False, seed=0)  # S = 8
+            card = Simulator(cfg, model=probe)
+            cpu = Simulator(cfg, device="cpu", model=probe)
+            w = model.flat_init(torch.Generator().manual_seed(1))
+            cidx, bidx, noise, _ = cpu.draw_round(cpu.gen, 0)
+            on_card = [t.to(dev) for t in (w, cidx, bidx, noise)]
+            d_card = card.local_updates(*on_card)[0]
+            d_again = card.local_updates(*on_card)[0]
+            d_cpu = cpu.local_updates(w, cidx, bidx, noise)[0]
+            torch.cuda.synchronize()
+            with fp32_math():
+                logits = model.apply_flat(on_card[0], card.x_val[:256])
+            ref_logits = model.apply_flat(w, cpu.x_val[:256])
+            rows.append({
+                "family": family, "num_params": model.num_params,
+                "contributors": int(cidx.shape[0]), "batch": cfg.batch_size,
+                "logits_equal_within_rtol": close_to(logits, ref_logits),
+                "logits_max_abs_diff": float((logits.cpu() - ref_logits).abs().max()),
+                "step_equal_within_rtol": close_to(d_card, d_cpu),
+                "step_max_abs_diff": float((d_card.cpu() - d_cpu).abs().max()),
+                "step_max_abs": float(d_cpu.abs().max()),
+                "matmul_allow_tf32_in_step": sorted({m for m, _ in seen}),
+                "cudnn_allow_tf32_in_step": sorted({c for _, c in seen}),
+                "step_bit_identical": bool(torch.equal(d_card, d_again))})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    emit("models", families=rows, seconds=time.perf_counter() - t_phase)
+    for (family, _, params), row in zip(CNNS, rows):
+        if row["num_params"] != params:
+            raise AssertionError(f"{family}: {row['num_params']} parameters")
+        if not (row["logits_equal_within_rtol"] and row["step_equal_within_rtol"]):
+            raise AssertionError(f"{family}: card and CPU disagree: {row}")
+        if row["matmul_allow_tf32_in_step"] != [False] \
+                or row["cudnn_allow_tf32_in_step"] != [False]:
+            raise AssertionError(f"{family}: the step ran with TF32 on")
+    return {"families": rows}
+
+
+def defenses_phase(dev) -> dict:
+    """One round of each defense at the main configuration: a warm round,
+    3 timed rounds, then one round's draws on the card and on the CPU
+    port. B1 must launch once a round under KRUM and MULTIKRUM, and never
+    under the others."""
+    import torch
+
+    from biscotti_tpu_torch.config import BiscottiConfig, Defense
+    from biscotti_tpu_torch.ops import krum_cuda
+    from biscotti_tpu_torch.parallel.sim import Simulator
+
+    kern = krum_cuda.krum_scores_kernel
+    t_phase = time.perf_counter()
+    rows, launches = {}, 0
+    for d in (Defense.KRUM, Defense.MULTIKRUM, Defense.FOOLSGOLD, Defense.RONI,
+              Defense.TRIMMED_MEAN, Defense.NONE, Defense.ENSEMBLE):
+        cfg = BiscottiConfig(defense=d, secure_agg=d != Defense.TRIMMED_MEAN,
+                             **MAIN)
+        sim = Simulator(cfg)
+        w, stake = sim.init_state()
+        w, stake, _, _ = sim.round_step(w, stake, 0)  # warm
+        torch.cuda.synchronize()
+        per_round, ms = [], []
+        for it in range(1, 4):
+            before = kern.launches
+            t0 = time.perf_counter()
+            w, stake, mask, err = sim.round_step(w, stake, it)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            per_round.append(kern.launches - before)
+        launches += sum(per_round)
+        want = 1 if d in (Defense.KRUM, Defense.MULTIKRUM) else 0
+        row = {"round_ms": ms, "round_ms_median": statistics.median(ms),
+               "b1_launches_per_round": per_round, "accepted": int(mask.sum()),
+               "error": float(err)}
+        cpu = Simulator(cfg, device="cpu")
+        row["card_vs_cpu"] = round_card_vs_cpu(sim, cpu, w, stake,
+                                               sim.draw_round(sim.gen, 4))
+        rows[d.value] = row
+        del sim, cpu
+        if per_round != [want] * 3:
+            raise AssertionError(f"{d.value}: B1 launched {per_round} times in "
+                                 f"3 rounds, not {want} a round")
+    emit("defenses", nodes=MAIN["num_nodes"], defenses=rows, b1_launches=launches,
+         seconds=time.perf_counter() - t_phase)
+    return {"defenses": rows, "b1_launches": launches}
+
+
+def cnn_phase(dev) -> dict:
+    """The mnist CNN at the main configuration's scale (d = 164,266): 2 warm
+    and 5 timed rounds with B1 once a round at (716, 164266), B1 against
+    its plain version on one round's noised updates from flat_init
+    weights, and a torch.profiler window (`device_trace`) over 3 rounds."""
+    import tempfile
+
+    import torch
+
+    from biscotti_tpu_torch.config import BiscottiConfig, Defense
+    from biscotti_tpu_torch.ops import krum_cuda
+    from biscotti_tpu_torch.ops.krum import default_num_adversaries
+    from biscotti_tpu_torch.parallel.sim import Simulator
+    from biscotti_tpu_torch.utils.profiling import device_trace
+
+    kern, plain = krum_cuda.krum_scores_kernel, krum_cuda.krum_scores_plain
+    t_phase = time.perf_counter()
+    cfg = BiscottiConfig(defense=Defense.KRUM, model_name="mnist_cnn", **MAIN)
+    t0 = time.perf_counter()
+    sim = Simulator(cfg)
+    setup_s = time.perf_counter() - t0
+    s, n = cfg.num_samples, sim.num_params
+    f = default_num_adversaries(s)
+    w, stake = sim.init_state()
+    for it in range(2):
+        w, stake, mask, err = sim.round_step(w, stake, it)
+    torch.cuda.synchronize()
+    kern.launches = 0
+    round_ms = []
+    for it in range(2, 7):
+        before = kern.launches
+        t0 = time.perf_counter()
+        w, stake, mask, err = sim.round_step(w, stake, it)
+        torch.cuda.synchronize()
+        round_ms.append(1e3 * (time.perf_counter() - t0))
+        if kern.launches - before != 1:
+            raise AssertionError(f"cnn round {it} launched B1 "
+                                 f"{kern.launches - before} times, not once")
+    launches = kern.launches
+    if not (w.shape == (n,) and bool(torch.isfinite(w).all())):
+        raise AssertionError("cnn path: w is not finite or has the wrong shape")
+    if int(mask.sum()) != s - f:
+        raise AssertionError(f"cnn path: {int(mask.sum())} accepted, not {s - f}")
+
+    # B1 against its plain version on one round's noised updates
+    w0 = sim.model.flat_init(torch.Generator(device=dev).manual_seed(3))
+    cidx, bidx, noise, _ = sim.draw_round(sim.gen, 7)
+    _, noised = sim.local_updates(w0, cidx, bidx, noise)
+    got, ref = kern(noised, f), plain(noised, f)
+    torch.cuda.synchronize()
+    err_rel = rel_err(got, ref)
+    kernel = {"n": s, "d": n, "max_abs_err": float((got - ref).abs().max()),
+              "max_rel_err": err_rel,
+              "accept_set_identical": accept_set(got, s - f) == accept_set(ref, s - f),
+              "boundary_rel_gap": boundary_rel_gap(ref, s - f),
+              **krum_times(noised, f)}
+    kernel["rel_err_over_half_gap"] = err_rel / (kernel["boundary_rel_gap"] / 2)
+    if not err_rel < kernel["boundary_rel_gap"] / 2:
+        truth = krum_scores_fp64(noised, f)
+        kernel["kernel_vs_fp64_rel_err"] = rel_err(got.double(), truth)
+        kernel["plain_vs_fp64_rel_err"] = rel_err(ref.double(), truth)
+    del noised, noise
+
+    # where a round's time goes
+    prof_rounds = 3
+    with tempfile.TemporaryDirectory() as log_dir:
+        t0 = time.perf_counter()
+        with device_trace(log_dir) as prof:
+            pw, pstake = w, stake
+            for it in range(7, 7 + prof_rounds):
+                pw, pstake, _, _ = sim.round_step(pw, pstake, it)
+        host_ms = 1e3 * (time.perf_counter() - t0) / prof_rounds
+        trace_mb = os.path.getsize(os.path.join(log_dir, "trace.json")) / 2**20
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in on_device) / 1e3 / prof_rounds
+    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:10]
+    profile_row = {
+        "rounds": prof_rounds, "device_ms_per_round": device_ms,
+        "host_ms_per_round_profiled": host_ms,
+        "device_idle_share": 1.0 - device_ms / statistics.median(round_ms),
+        "kernels_per_round": sum(e.count for e in on_device) / prof_rounds,
+        "trace_mb": trace_mb,
+        "top": [{"name": e.key[:100],
+                 "ms_per_round": e.self_device_time_total / 1e3 / prof_rounds,
+                 "calls_per_round": e.count / prof_rounds} for e in top]}
+    emit("cnn", model="mnist_cnn", nodes=cfg.num_nodes, contributors=s,
+         params=n, update_gb=4.0 * s * n / 1e9, setup_s=setup_s,
+         round_ms=round_ms, round_ms_median=statistics.median(round_ms),
+         b1_launches=launches, accepted=int(mask.sum()), error=float(err),
+         kernel=kernel, profile=profile_row,
+         seconds=time.perf_counter() - t_phase)
+    if not (err_rel < RTOL and kernel["accept_set_identical"]):
+        raise AssertionError("B1 disagrees with plain at the mnist CNN width")
+    # below half the boundary gap, or (where the plain version's own error
+    # against float64 exceeds that) no less exact than plain
+    if "kernel_vs_fp64_rel_err" in kernel and not (
+            kernel["plain_vs_fp64_rel_err"] > kernel["boundary_rel_gap"] / 2
+            and kernel["kernel_vs_fp64_rel_err"]
+            <= EXACT_SLACK * kernel["plain_vs_fp64_rel_err"]):
+        raise AssertionError(f"B1 error at the mnist CNN width: {kernel}")
+    return {"kernel": kernel, "b1_launches": launches}
+
+
+def bench_phase(dev) -> dict:
+    """The eight BASELINE rows through `biscotti_tpu_torch.bench`, then one
+    round of each CNN row on the card and on the CPU port, on the same
+    draws, from flat_init weights."""
+    import torch
+
+    from biscotti_tpu_torch import bench
+    from biscotti_tpu_torch.parallel.sim import Simulator
+
+    t_phase = time.perf_counter()
+    out = bench.run(device=dev)
+    parity = {}
+    for name in ("cifar_lenet_100_krum_secagg", "mnist_cnn_100_krum_secagg",
+                 "lfw_cnn_100_krum_secagg"):
+        cfg = bench.config(name)
+        card, cpu = Simulator(cfg), Simulator(cfg, device="cpu")
+        w = card.model.flat_init(torch.Generator(device=dev).manual_seed(4))
+        stake = card.init_state()[1]
+        parity[name] = round_card_vs_cpu(card, cpu, w, stake,
+                                         card.draw_round(card.gen, 0))
+        del card, cpu
+    emit("bench", **out, card_vs_cpu=parity, seconds=time.perf_counter() - t_phase)
+    for name, row in out["rows"].items():
+        if not (row["device_round_s"] > 0 and 0.0 <= row["final_error"] <= 1.0):
+            raise AssertionError(f"bench row {name}: {row}")
+    return out
+
+
+def trainer_phase(dev) -> dict:
+    """The per-peer Trainer on the card against the CPU port (mnist softmax
+    and mnist_cnn, flat_init weights, the card's own batch rows fed to the
+    CPU's pure step), one private_fun's time, and mcmc13 Trainers at
+    d = 7,850 and 164,266: acceptance, mean row norm against 2d/ε, and the
+    presample's time."""
+    import torch
+
+    from biscotti_tpu_torch.config import BiscottiConfig
+    from biscotti_tpu_torch.models.trainer import Trainer
+    from biscotti_tpu_torch.ops import dp_noise
+
+    t_phase = time.perf_counter()
+    api = {}
+    for model_name, shard in (("", "mnist3"), ("mnist_cnn", "mnist1")):
+        cfg = BiscottiConfig(dataset="mnist", model_name=model_name, seed=0)
+        card = Trainer("mnist", shard, cfg=cfg)
+        cpu = Trainer("mnist", shard, cfg=cfg, device="cpu")
+        w = card.model.flat_init(torch.Generator().manual_seed(3)).numpy()
+        delta = card.private_fun(w, 0)
+        ref = cpu.private_fun_from_batch(w, card.batch_indices(0).cpu())
+        times = []
+        for it in range(6):
+            t0 = time.perf_counter()
+            card.private_fun(w, it)
+            times.append(1e3 * (time.perf_counter() - t0))
+        n_train, n_test = len(cpu.x_train), len(cpu.x_test)
+        n_attack = len(cpu.x_attack)
+        gaps = {"train_error": (card.train_error(w) - cpu.train_error(w)) * n_train,
+                "test_error": (card.test_error(w) - cpu.test_error(w)) * n_test,
+                "attack_rate": (card.attack_rate(w) - cpu.attack_rate(w)) * n_attack,
+                "attack_success_rate": (card.attack_success_rate(w)
+                                        - cpu.attack_success_rate(w)) * n_attack,
+                "roni": (card.roni(w, delta) - cpu.roni(w, delta)) * n_train}
+        row = {"model": card.model.name, "params": card.num_params,
+               "private_fun_equal_within_rtol": close_to(
+                   torch.from_numpy(delta), torch.from_numpy(ref)),
+               "private_fun_max_abs_diff": float(np.abs(delta - ref).max()),
+               "metric_gaps_in_samples": gaps,
+               "private_fun_ms": statistics.median(times[1:]),
+               "noise_finite": bool(np.isfinite(card.get_noise(3)).all())}
+        api[row["model"]] = row
+        if not row["private_fun_equal_within_rtol"] or not row["noise_finite"]:
+            raise AssertionError(f"Trainer card vs CPU: {row}")
+        if max(abs(g) for g in gaps.values()) > 2.0 + 1e-3:
+            raise AssertionError(f"Trainer metrics differ by more than a "
+                                 f"sample or two: {gaps}")
+    mcmc = {}
+    for model_name in ("", "mnist_cnn"):
+        cfg = BiscottiConfig(dataset="mnist", model_name=model_name,
+                             dp_mechanism="mcmc13", noise_presample_iters=100,
+                             epsilon=1.0, seed=0)
+        t0 = time.perf_counter()
+        tr = Trainer("mnist", "mnist0", cfg=cfg)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        d = tr.num_params
+        gen = torch.Generator(device=dev).manual_seed(1)
+        presample_s, _ = host_s(lambda: (dp_noise.mcmc_presample(gen, 1.0, 100, d),
+                                         torch.cuda.synchronize()))
+        norms = torch.linalg.vector_norm(tr.noise_samples.double(), dim=1)
+        want = 2.0 * d / cfg.epsilon
+        row = {"d": d, "rows": int(tr.noise_samples.shape[0]),
+               "walkers": dp_noise.mcmc_walkers(100),
+               "accept_rate": tr.noise_accept_rate,
+               "mean_row_norm": float(norms.mean()), "law_mean": want,
+               "mean_rel_dev": float(norms.mean()) / want - 1.0,
+               "trainer_build_s": build_s, "presample_s": presample_s}
+        mcmc[str(d)] = row
+        if abs(row["mean_rel_dev"]) > 0.01 or not 0.15 < row["accept_rate"] < 0.35:
+            raise AssertionError(f"mcmc13 presample off its law: {row}")
+    emit("trainer", api=api, mcmc13=mcmc, seconds=time.perf_counter() - t_phase)
+    return {"api": api, "mcmc13": mcmc}
+
+
 def main() -> int:
     import torch
 
@@ -779,18 +1175,32 @@ def main() -> int:
     b2 = crypto_kernel_phase(dev, grid, oncurve_sass)
     crypto = crypto_phase(dev, grid, a, b)
 
+    # models, defenses, cnn, bench, trainer: slice 3 ------------------------
+    models_phase(dev)
+    defenses = defenses_phase(dev)
+    cnn = cnn_phase(dev)
+    bench_phase(dev)
+    trainer_phase(dev)
+    cnn_kernel = cnn["kernel"]
+
     # 6. kernels ----------------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "krum_scores", "route": "cuda",
         "source": "biscotti_tpu_torch/csrc/krum_scores.cu",
         "replaces": "biscotti_tpu/ops/krum_pallas.py:72",
-        "launches": main_launches,
+        "launches": main_launches + defenses["b1_launches"] + cnn["b1_launches"],
+        "launches_by_phase": {"main": main_launches,
+                              "defenses": defenses["b1_launches"],
+                              "cnn": cnn["b1_launches"]},
         "max_abs_err": main_kernel["max_abs_err"],
         "ms": main_kernel["ms"], "plain_ms": main_kernel["plain_ms"],
         "bound_ms": main_kernel["bound_ms"], "bound_by": main_kernel["bound_by"],
         "library_ms": None, "bound_pipe": main_kernel["bound_pipe"],
         "kernel_only_ms": main_kernel["kernel_only_ms"],
-        "gram_cublas_ms": main_kernel["gram_cublas_ms"]}, {
+        "gram_cublas_ms": main_kernel["gram_cublas_ms"],
+        "at_716x164266": {k: cnn_kernel[k] for k in (
+            "max_abs_err", "ms", "kernel_only_ms", "plain_ms", "gram_cublas_ms",
+            "bound_ms", "bound_by", "accept_set_identical")}}, {
         "name": "oncurve_validate", "route": "cuda",
         "source": "biscotti_tpu_torch/csrc/oncurve.cu",
         "replaces": "biscotti_tpu/crypto/kernels/pallas_validate.py:34",

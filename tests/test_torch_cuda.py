@@ -232,3 +232,74 @@ def test_plane_card_matches_cpu_bit_for_bit(dev, monkeypatch):
     coeffs = rng.integers(-1000, 1000, (785, 10))
     agg = np.vander(np.arange(15) - 10, 10, increasing=True) @ coeffs.T
     assert np.array_equal(prim.shamir_recover(pinv, agg), coeffs)
+
+
+# --------------------------------- slice 3: CNNs and defenses on the card
+
+
+def test_cnn_step_card_matches_cpu(dev):
+    from biscotti_tpu_torch.models.base import fp32_math
+    from biscotti_tpu_torch.models.trainer import local_step_fn
+    from biscotti_tpu_torch.models.zoo import MODELS
+
+    for family, dataset in (("mnist_cnn", "mnist"), ("cifar_cnn", "cifar"),
+                            ("lfw_cnn", "lfw")):
+        model = MODELS[family](dataset)
+        w = model.flat_init(torch.Generator().manual_seed(1))
+        gen = torch.Generator().manual_seed(2)
+        x = torch.randn(4, 10, model.d_in, generator=gen)
+        y = torch.randint(0, model.n_classes, (4, 10), generator=gen)
+        step = torch.func.vmap(local_step_fn(model, "grad"), in_dims=(None, 0, 0))
+        with fp32_math():
+            got = step(w.to(dev), x.to(dev), y.to(dev)).cpu()
+        ref = step(w, x, y)
+        scale = float(ref.abs().max())
+        assert torch.allclose(got, ref, rtol=RTOL, atol=RTOL * scale), family
+
+
+def test_multikrum_runs_b1_in_the_window(dev):
+    from biscotti_tpu_torch.ops.robust_agg import multikrum_accept_mask, multikrum_m
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n, d = 716, 7850
+    x = torch.randn(n, d, generator=gen, device=dev)
+    x[:200] += 0.3  # a displaced group
+    f = default_num_adversaries(n)
+    before = krum_cuda.krum_scores_kernel.launches
+    mask = multikrum_accept_mask(x, f)
+    assert krum_cuda.krum_scores_kernel.launches == before + 1
+    plain = krum_cuda.krum_scores_plain(x, f)
+    keep = torch.sort(plain, stable=True).indices[:multikrum_m(n, f)]
+    want = torch.zeros(n, dtype=torch.bool, device=dev)
+    want[keep] = True
+    assert torch.equal(mask, want)
+
+
+def test_foolsgold_and_trimmed_mean_card_match_cpu(dev):
+    from biscotti_tpu_torch.ops import robust_agg as ra
+
+    rng = np.random.default_rng(6)
+    x = rng.normal(0.0, 1.0, (70, 512)).astype(np.float32)
+    x[49:] += rng.normal(0.0, 1.0, (1, 512)).astype(np.float32)  # a cluster
+    cpu = torch.from_numpy(x)
+    card = cpu.to(dev)
+    assert torch.equal(ra.foolsgold_accept_mask(card).cpu(),
+                       ra.foolsgold_accept_mask(cpu))
+    assert torch.allclose(ra.foolsgold_weights(card).cpu(),
+                          ra.foolsgold_weights(cpu), rtol=1e-5, atol=1e-5)
+    for t in (0.0, 0.35, 0.49):
+        assert torch.allclose(ra.trimmed_mean_aggregate(card, t).cpu(),
+                              ra.trimmed_mean_aggregate(cpu, t),
+                              rtol=1e-5, atol=1e-4)
+    assert torch.allclose(ra.median_aggregate(card).cpu(),
+                          ra.median_aggregate(cpu), rtol=1e-6, atol=1e-6)
+
+
+def test_kernel_at_the_mnist_cnn_width_is_bit_identical(dev):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n, d = 716, 164_266
+    x = torch.randn(n, d, generator=gen, device=dev)
+    f = default_num_adversaries(n)
+    first = krum_cuda.krum_scores_kernel(x, f)
+    assert torch.equal(first, krum_cuda.krum_scores_kernel(x, f))
+    assert _rel_err(first, krum_cuda.krum_scores_plain(x, f)) < RTOL

@@ -31,6 +31,12 @@ def test_port_modules_import_without_jax_or_reference():
         "kernels.field", "kernels.group", "kernels.cuda_validate",
         "kernels.primitives", "kernels.cells")}
     assert crypto <= set(mods), crypto - set(mods)
+    slice3 = {"biscotti_tpu_torch." + m for m in (
+        "bench", "models.trainer", "models.zoo", "ops.dp_noise",
+        "ops.robust_agg", "ops.roni", "ops.lsh_sieve", "telemetry",
+        "telemetry.registry", "tools.conv_precision", "utils",
+        "utils.profiling")}
+    assert slice3 <= set(mods), slice3 - set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -51,3 +57,14 @@ def test_simulator_without_device_needs_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+    from biscotti_tpu_torch import bench
+    from biscotti_tpu_torch.models.trainer import Trainer
+    from biscotti_tpu_torch.utils.profiling import device_trace
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer("creditcard", "creditcard0")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.run(["creditcard_10"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        with device_trace(os.devnull):
+            pass

@@ -120,13 +120,6 @@ def test_flat_layout_matches_ravel_pytree():
     assert np.array_equal(params_from_jax(flat, device=CPU).numpy(), flat)
 
 
-def test_cnn_families_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A2"):
-        pzoo.model_for_dataset("mnist", "mnist_cnn")
-    assert pzoo.model_for_dataset("creditcard").name == "logreg"
-    assert pzoo.model_for_dataset("mnist").name == "softmax"
-
-
 def test_dp_noise_matches():
     for eps in (0.0, 0.5, 1.0, 2.0):
         assert pdp.sigma_for(eps, 1e-5) == jdp.sigma_for(eps, 1e-5)
