@@ -11,6 +11,9 @@ as `c_void_p`.
                  kernels a call: pad, fp32 Gram, row select)
     oncurve      kernel B2, on-curve validator (crypto/kernels/cuda_validate.py)
 
+`crypto/_native.py` builds the host EC library with `g++` through the same
+`digest_path` and `compile_once`.
+
 Nothing is built or loaded at import time: the CPU tests import every module
 of the port on a machine with no `nvcc`.
 """
@@ -18,6 +21,7 @@ of the port on a machine with no `nvcc`.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -73,30 +77,48 @@ def nvcc() -> str:
     return found
 
 
+def digest_path(stem: str, src: Path, flags, extra: bytes = b"") -> Path:
+    """`build/lib<stem>-<digest>.so`, the digest over the source, the flags
+    and `extra` (whatever else binds the binary, such as the host)."""
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
+                            + extra).hexdigest()[:12]
+    return BUILD / f"lib{stem}-{digest}.so"
+
+
+def compile_once(compiler: str, flags, src: Path, out: Path) -> str:
+    """Compile `src` into `out` unless it is built already. Returns the
+    compiler's report ("" if it was already built); raises with the report
+    if the compile fails. The compile runs under a file lock per library,
+    into a temporary name renamed into place, so processes that start
+    together (test workers) build it once and none loads a half-written
+    library."""
+    if out.exists():
+        return ""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    stem = out.name.rsplit("-", 1)[0]
+    with open(out.parent / f"{stem}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():  # another process built it while this one waited
+            return ""
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([compiler, *flags, "-o", str(tmp), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{os.path.basename(compiler)} failed on "
+                               f"{src.name}:\n{proc.stdout}")
+        os.replace(tmp, out)
+    return proc.stdout
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(source(name).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD / f"lib{name}-{digest}.so"
+    return digest_path(name, source(name), NVCC_FLAGS)
 
 
 def build(name: str) -> str:
-    """Compile the named library unless it is built already. Returns the
-    compiler's report ("" if it was already built); raises with the report
-    if nvcc fails."""
-    out = library_path(name)
-    if out.exists():
-        return ""
-    BUILD.mkdir(parents=True, exist_ok=True)
-    # unique temporary name, then an atomic rename: another process never
-    # loads a half-written library
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source(name))],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stdout}")
-    os.replace(tmp, out)
-    return proc.stdout
+    """Compile the named CUDA library unless it is built already; returns
+    nvcc's report ("" if it was already built)."""
+    return compile_once(nvcc(), NVCC_FLAGS, source(name), library_path(name))
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,21 +1,44 @@
-"""The port's device-round bench: the device-round half of the reference
-bench's `bench_config` (bench.py:205-244) over its eight BASELINE configs
-(bench.py:842-879), on the GPU.
+"""The port's crypto-inclusive bench: the reference bench's `bench_config`
+(bench.py:193-395) over its eight BASELINE configs (bench.py:842-879), on
+the GPU.
 
     python -m biscotti_tpu_torch.bench [--configs NAME,NAME] [--rounds N]
                                        [--device cpu]
 
-For each config it builds the port's `Simulator`, runs 2 warm rounds, then
-10 timed rounds (4 for the rows that name a model, as bench.py:887), ending
-in `torch.cuda.synchronize()`; `device_round_s` is the timed span over the
-timed rounds. Standard output is one JSON line: the device, the card's
-`name, power.limit` as nvidia-smi prints it (null on the CPU) and one row a
-config with `device_round_s`, `accepted_per_round`, `final_error`, `params`
-and `nodes`.
+For each config:
+  * device round — the port's `Simulator`, 2 warm rounds, then 10 timed
+    rounds (4 for the rows that name a model, as bench.py:887), ending in
+    `torch.cuda.synchronize()`; `device_round_s` is the mean timed round;
+  * worker crypto — ONE peer's quantize → Pedersen-VSS chunk commitments →
+    blinding rows → int64 Shamir shares (`worker_crypto_s`, host);
+  * miner crypto — the busiest miner's intake of num_samples // 2 workers
+    through `VssIntakeBatch`: `add` + one `fold` (`miner_fold_s`, overlapped
+    with the intake network window in deployment), the mint-time settle
+    (`miner_crypto_s`) and the pre-pipeline one-shot `vss_verify_multi`
+    lump (`miner_crypto_oneshot_s`), on the native host plane;
+  * recovery — `recover_update` of three workers' aggregated shares
+    (`recovery_s`), which must round-trip exactly
+    (`share_pipeline_roundtrip_ok`);
+  * with C·k ≤ DEVICE_SETTLE_MAX_D (2048, the reference's default), the
+    same settle with the device crypto plane armed on the bench's device
+    (`miner_crypto_device_s`) and its `msm` rate at the grid width
+    (`msm_points_per_s`), one timed call each.
+The host crypto runs on the native EC plane (`native_ec_plane` in the
+JSON); on the GPU the bench raises where that library did not load, since
+the python-int fallback is ~30x slower.
+`round_total_s` is the serial sum device + worker + one-shot + recovery;
+`round_total_pipelined_s` is max(device, worker, fold) + settle + recovery,
+the reference's depth-1 one-peer-per-host composition. Host times are the
+host clock; every device entry point ends in a host copy of its result.
 
-Left out: the MFU column (bench.py:225-232 counts dense-layer FLOPs only and
-undercounts the convolutions by its own comment) and the host crypto half,
-which waits for the port's secret-share and commitment seams.
+Standard output is one JSON line: the device, the card's `name,
+power.limit` as nvidia-smi prints it (null on the CPU), whether the native
+EC plane ran the host crypto, one row a config
+and, when mnist_100_dp_eps1 ran, the reference's headline (its pipelined
+crypto-inclusive s/iter). Left out: the MFU column (bench.py:225-232 counts
+dense-layer FLOPs only and undercounts the convolutions by its own
+comment) and the wire and cross-host byte columns (bench.py:396-417),
+which wait for the port's wire and overlay planes.
 """
 
 from __future__ import annotations
@@ -24,15 +47,29 @@ import argparse
 import json
 import subprocess
 import time
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from biscotti_tpu_torch.config import BiscottiConfig, Defense
+from biscotti_tpu_torch.crypto import _native
+from biscotti_tpu_torch.crypto import commitments as cm
+from biscotti_tpu_torch.crypto import kernels
 from biscotti_tpu_torch.device import resolve_device, synchronize
+from biscotti_tpu_torch.ops import secretshare as ss
 from biscotti_tpu_torch.parallel.sim import Simulator
 
 WARM_ROUNDS = 2
+# the reference's default device-settle cap (C·k points): the eager device
+# settle is launch-bound, seconds a call whatever its width, so the bench
+# pays it on the one row under the cap (creditcard_10) and chip_smoke's
+# `secagg` phase times it at the mnist width
+DEVICE_SETTLE_MAX_D = 2048
+HEADLINE = "mnist_100_dp_eps1"
+HEADLINE_METRIC = ("crypto-inclusive s/iter, 100-peer MNIST softmax + Krum "
+                   "+ DP eps=1.0 + secure-agg, pipelined round engine "
+                   "(ref fleet: 38.2 s/iter)")
 
 # bench.py:842-879, in order
 BASE = dict(batch_size=10, epsilon=1.0, sample_percent=0.70,
@@ -71,9 +108,104 @@ def timed_rounds(cfg: BiscottiConfig) -> int:
     return 4 if cfg.model_name else 10
 
 
+def _timeit(fn: Callable, warm: int = 1, iters: int = 3) -> float:
+    """Mean host-clock seconds of `iters` calls after `warm` untimed ones."""
+    for _ in range(warm):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters
+
+
+def crypto_times(cfg: BiscottiConfig, w: np.ndarray, device_s: float,
+                 dev: torch.device) -> dict:
+    """The host crypto half of one config's row (bench.py:246-381), with
+    `w` the representative d-vector and `device_s` the device round."""
+    d, k = len(w), cfg.poly_size
+    total_shares, per_miner = cfg.total_shares, cfg.shares_per_miner
+    q = ss.quantize(w, cfg.precision)
+    # CNN-sized models: one timed repetition (each pass is seconds long)
+    reps = 1 if d > 20_000 else 2
+    c_chunks = ss.num_chunks(d, k)
+    chunks = ss.to_chunks(q, k)
+    xs_all = [i - ss.SHARE_OFFSET for i in range(total_shares)]
+    made = {}
+
+    def worker():
+        comms, blinds = cm.vss_commit_chunks(chunks, b"bench-seed" * 3, b"ctx")
+        made.update(comms=comms, br=cm.vss_blind_rows(blinds, xs_all),
+                    sh=ss.make_shares(q, k, total_shares))
+
+    worker_s = _timeit(worker, warm=1, iters=reps)
+    comms, br, sh = made["comms"], made["br"], made["sh"]
+    sl = slice(0, per_miner)
+    intake = max(1, cfg.num_samples // 2)
+
+    def fold_intake():
+        acc = cm.VssIntakeBatch(per_miner, c_chunks, k)
+        for sid in range(intake):
+            acc.add(sid, comms, sh[sl], br[sl])
+        acc.fold()
+        return acc
+
+    t0 = time.perf_counter()
+    accs = [fold_intake() for _ in range(reps)]
+    fold_s = (time.perf_counter() - t0) / reps
+    if not accs[0].verify(xs_all[sl]):  # + warm
+        raise RuntimeError("intake settle failed")
+    miner_s = _timeit(lambda: accs[0].verify(xs_all[sl]), warm=0, iters=reps)
+    instances = [(comms, xs_all[sl], sh[sl], br[sl])] * intake
+    oneshot_s = _timeit(lambda: cm.vss_verify_multi(instances), warm=0,
+                        iters=reps)
+
+    agg = ss.aggregate_shares(sh[None].repeat(3, axis=0))
+    xs_arr = ss.share_xs(total_shares)
+
+    def recover():
+        return ss.recover_update(agg, xs_arr, d, k, cfg.precision)
+
+    recover_s = _timeit(recover, warm=1, iters=reps)
+    row = {"worker_crypto_s": worker_s, "miner_intake": intake,
+           "miner_crypto_s": miner_s, "miner_fold_s": fold_s,
+           "miner_crypto_oneshot_s": oneshot_s, "recovery_s": recover_s,
+           "share_pipeline_roundtrip_ok": bool(np.allclose(
+               recover(), 3 * q / 10.0 ** cfg.precision, atol=1e-9))}
+
+    # the same settle with the device crypto plane armed on this device;
+    # the checked settle is the warm call, and the `msm` after it reuses
+    # the settle's compiled lane bucket
+    if c_chunks * k <= DEVICE_SETTLE_MAX_D:
+        kernels.set_enabled(True, device=dev)
+        try:
+            acc_dev = fold_intake()
+            if not acc_dev.verify(xs_all[sl]):
+                raise RuntimeError("device settle failed")
+            row["miner_crypto_device_s"] = _timeit(
+                lambda: acc_dev.verify(xs_all[sl]), warm=0, iters=1)
+            n_pts = c_chunks * k
+            # RLC-shaped odd ~128-bit scalars (the ladder's cost is
+            # scalar-width independent)
+            gammas = [((i + 3) * 0x9E3779B97F4A7C15F39CC0605CEDC835) | 1
+                      for i in range(n_pts)]
+            msm_t = _timeit(lambda: kernels.msm(gammas, acc_dev._acc_dev,
+                                                device=dev),
+                            warm=0, iters=1)
+            row["msm_points_per_s"] = n_pts / msm_t
+        finally:
+            kernels.set_enabled(False)
+    row["round_total_s"] = device_s + worker_s + oneshot_s + recover_s
+    # one peer per host, depth-1 overlap: the device round, the worker's
+    # crypto and the miner's folds run at once; settle and recovery follow
+    row["round_total_pipelined_s"] = (max(device_s, worker_s, fold_s)
+                                      + miner_s + recover_s)
+    return row
+
+
 def bench_config(cfg: BiscottiConfig, rounds: int,
                  device: Optional[Union[str, torch.device]] = None) -> dict:
-    """One config's device round: 2 warm rounds, then `rounds` timed."""
+    """One config's row: the device round (2 warm rounds, then `rounds`
+    timed), then the host crypto half on the final weights."""
     sim = Simulator(cfg, device=device)
     w, stake = sim.init_state()
     for it in range(WARM_ROUNDS):
@@ -84,12 +216,15 @@ def bench_config(cfg: BiscottiConfig, rounds: int,
         w, stake, mask, err = sim.round_step(w, stake, it)
     synchronize(sim.device)
     device_s = (time.perf_counter() - t0) / rounds
-    return {"dataset": cfg.dataset, "model": sim.model.name,
-            "nodes": cfg.num_nodes, "params": sim.num_params,
-            "defense": cfg.defense.value, "secure_agg": cfg.secure_agg,
-            "noising": cfg.noising, "poison": cfg.poison_fraction,
-            "timed_rounds": rounds, "device_round_s": device_s,
-            "accepted_per_round": int(mask.sum()), "final_error": float(err)}
+    row = {"dataset": cfg.dataset, "model": sim.model.name,
+           "nodes": cfg.num_nodes, "params": sim.num_params,
+           "defense": cfg.defense.value, "secure_agg": cfg.secure_agg,
+           "noising": cfg.noising, "poison": cfg.poison_fraction,
+           "timed_rounds": rounds, "device_round_s": device_s,
+           "accepted_per_round": int(mask.sum()), "final_error": float(err)}
+    row.update(crypto_times(cfg, w.double().cpu().numpy(), device_s,
+                            sim.device))
+    return row
 
 
 def card_line() -> str:
@@ -104,18 +239,28 @@ def run(names: Optional[List[str]] = None, rounds: int = 0,
     """The bench over `names` (every config when not given); `rounds`
     overrides the timed-round count."""
     dev = resolve_device(device)
+    if dev.type == "cuda" and not _native.available():
+        raise RuntimeError("the native EC plane did not load: "
+                           f"{_native.load_error()}")
     rows: Dict[str, dict] = {}
     for name in names or [n for n, _ in CONFIGS]:
         cfg = config(name)
         rows[name] = bench_config(cfg, rounds or timed_rounds(cfg), dev)
-    return {"device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                       else "cpu"),
-            "nvidia_smi": card_line() if dev.type == "cuda" else None,
-            "warm_rounds": WARM_ROUNDS, "rows": rows}
+    out = {"device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                      else "cpu"),
+           "nvidia_smi": card_line() if dev.type == "cuda" else None,
+           "native_ec_plane": _native.available(),
+           "warm_rounds": WARM_ROUNDS, "rows": rows}
+    if HEADLINE in rows:
+        out["headline"] = {
+            "metric": HEADLINE_METRIC, "unit": "s/iter",
+            "value": rows[HEADLINE]["round_total_pipelined_s"],
+            "serial_s_per_iter": rows[HEADLINE]["round_total_s"]}
+    return out
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="the port's device-round bench")
+    ap = argparse.ArgumentParser(description="the port's crypto-inclusive bench")
     ap.add_argument("--configs", default="",
                     help="comma-separated config names (all eight when empty): "
                          + ", ".join(n for n, _ in CONFIGS))

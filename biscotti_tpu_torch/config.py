@@ -1,5 +1,5 @@
-"""Slim copy of `biscotti_tpu/config.py`: the fields the simulator and the
-per-peer `Trainer` read.
+"""Slim copy of `biscotti_tpu/config.py`: the fields the simulator, the
+per-peer `Trainer` and the secure-aggregation plane read.
 
 The keyword names, defaults and construction checks are the reference's,
 so one dict builds both packages' configs. `FaultPlan` keeps only the frame-drop subset
@@ -67,6 +67,16 @@ class BiscottiConfig:
 
     default_stake: int = 10
     stake_unit: int = 5
+    precision: int = 4  # decimal digits kept by quantization (main.go:45)
+    poly_size: int = 10  # Shamir chunk degree (main.go:46)
+    # Share-row redundancy factor r: TOTAL_SHARES = ceil(r·k/M)·M. The
+    # reference protocol hardwires r=2 (main.go:825), which lets any ⌈M/2⌉
+    # miners reconstruct an aggregate, so two DISJOINT miner subsets can
+    # serve two different aggregation sets that a malicious leader can
+    # difference. Any r < 2 makes recovering subsets overlap in a miner.
+    # Layouts where ceil-rounding breaks that promise fail loudly from
+    # total_shares — set r=2.0 explicitly there.
+    share_redundancy: float = 1.5
     max_iterations: int = 100
     defense: Defense = Defense.KRUM
     roni_threshold: float = 0.02  # RONI reject score (main.go:203-231)
@@ -103,6 +113,41 @@ class BiscottiConfig:
         worker population N − verifiers − miners (ref: main.go:672-679)."""
         n = int(self.num_nodes * self.sample_percent)
         return max(1, min(n, self.num_nodes - self.num_verifiers - self.num_miners))
+
+    @property
+    def total_shares(self) -> int:
+        """TOTAL_SHARES = ceil(r·POLY_SIZE/NUM_MINERS)·NUM_MINERS
+        (ref: main.go:825 with r fixed at 2; see share_redundancy).
+
+        Exact rational arithmetic — float ceil would let representation
+        error round rows-per-miner up and silently reopen the differencing
+        channel the knob exists to close. When r < 2 is configured, the
+        property it promises (no ⌊M/2⌋-miner subset can reconstruct) is
+        CHECKED against the rounded layout, and a misconfiguration raises."""
+        from fractions import Fraction
+
+        if self.share_redundancy < 1.0:
+            raise ValueError("share_redundancy < 1 leaves fewer rows than "
+                             "polynomial coefficients: recovery impossible")
+        r = Fraction(self.share_redundancy).limit_denominator(1_000_000)
+        per = -((-r * self.poly_size) // self.num_miners)  # exact ceil
+        per = max(int(per), 1)
+        t = per * self.num_miners
+        if self.share_redundancy < 2.0:
+            half = self.num_miners // 2
+            if per * half >= self.poly_size:
+                raise ValueError(
+                    f"share_redundancy={self.share_redundancy} with "
+                    f"poly_size={self.poly_size}, num_miners="
+                    f"{self.num_miners} rounds to {per} rows/miner, so "
+                    f"{half} miners still hold ≥ poly_size rows and the "
+                    "r<2 anti-differencing guarantee does NOT hold — "
+                    "lower r, raise poly_size, or use fewer miners")
+        return t
+
+    @property
+    def shares_per_miner(self) -> int:
+        return self.total_shares // self.num_miners
 
     @staticmethod
     def add_args(p: argparse.ArgumentParser) -> None:

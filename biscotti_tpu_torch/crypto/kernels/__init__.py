@@ -7,14 +7,16 @@ hand-written CUDA kernel (`cuda_validate.py`, kernel B2), behind the
 reference's process-wide arming switch:
 
     from biscotti_tpu_torch.crypto import kernels
-    kernels.set_enabled(True)          # what --device-crypto does
-    kernels.active()                   # armed AND runnable here
+    kernels.set_enabled(True)               # the GPU
+    kernels.set_enabled(True, device="cpu") # the CPU tests
+    kernels.active()                        # armed
 
-`available()` means that `device.resolve_device()` finds a CUDA device.
-The seams that consult the switch (`commitments.py`'s batch verifiers and
-`VssIntakeBatch`, `secretshare.recover_coeffs`) and `prewarm` are not
-ported yet; the entry points below are called directly, each with
-`device=None` (the GPU) or an explicit `device="cpu"`.
+Arming records the device that the seams pass to every entry point
+(`armed_device()`): `commitments.py`'s batch verifiers and
+`VssIntakeBatch`, and `secretshare.recover_coeffs`. `device=None` means the
+GPU, and arming without one raises (`device.resolve_device`): the plane
+never runs quietly on the CPU. Unlike the reference, a device fault in a
+seam raises out of it; no seam finishes on the CPU after one.
 
 Importing this package builds and loads nothing: the CUDA kernel is built
 by `_build.py` at its first launch.
@@ -22,55 +24,39 @@ by `_build.py` at its first launch.
 
 from __future__ import annotations
 
-import sys
+from typing import Optional, Union
+
+import torch
 
 from biscotti_tpu_torch.crypto.kernels.instrument import (  # noqa: F401
     device_calls, device_seconds, release_hooks, reset_counters,
     set_metrics_registry, set_span_hook)
 from biscotti_tpu_torch.crypto.kernels.primitives import (  # noqa: F401
     ext_add, fixed_base_mult, grid_validate_sum, msm, pedersen_commit_point,
-    point_neg_limbs, shamir_recover)
+    point_neg_limbs, prewarm, shamir_recover)
 from biscotti_tpu_torch.device import resolve_device
 
-_enabled = False
-_warned = False
+_device: Optional[torch.device] = None
 
 
-def set_enabled(on: bool) -> None:
-    """Arm/disarm the device-crypto plane process-wide (the
-    --device-crypto switch). Arming while unavailable degrades loudly —
-    one stderr note naming why — and the seams keep their CPU path."""
-    global _enabled, _warned
-    _enabled = bool(on)
-    if _enabled and not available() and not _warned:
-        _warned = True
-        print(f"[crypto/kernels] --device-crypto requested but the device "
-              f"plane is unavailable ({availability_reason()}); all crypto "
-              f"stays on the CPU path", file=sys.stderr)
+def set_enabled(on: bool,
+                device: Optional[Union[str, torch.device]] = None) -> None:
+    """Arm the plane on `device` (None: the GPU; raises without one), or
+    disarm it, process-wide (the reference's --device-crypto switch)."""
+    global _device
+    _device = resolve_device(device) if on else None
 
 
-def enabled() -> bool:
-    return _enabled
-
-
-def availability_reason() -> str:
-    """Why the plane cannot run here ("" when it can)."""
-    try:
-        resolve_device()
-    except RuntimeError as e:
-        return str(e)
-    return ""
-
-
-def available() -> bool:
-    """True when the plane can run here: a CUDA device is present."""
-    return availability_reason() == ""
+def armed_device() -> Optional[torch.device]:
+    """The device the seams pass to the plane's entry points (None while
+    disarmed)."""
+    return _device
 
 
 def active() -> bool:
-    """Armed AND runnable — the one predicate every CPU/device dispatch
-    seam consults."""
-    return _enabled and available()
+    """Armed — the one predicate every CPU/device dispatch seam
+    consults (arming has already resolved the device)."""
+    return _device is not None
 
 
 def active_module():

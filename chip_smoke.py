@@ -52,6 +52,20 @@ printed as one JSON line:
               changes); card == CPU port bit for bit on a small wave;
               host-clock times of every entry point and one
               torch.profiler window over the msm;
+  secagg      the secure-aggregation plane at the bench's mnist_100_dp_eps1
+              width (d = 7,850, C = 785, k = 10, 3 miners at r = 2: 21
+              shares, 7 rows a miner), the native library loaded: one
+              worker's quantize (from the card) → vss_commit_chunks →
+              vss_blind_rows → make_shares, timed; 35 seeded workers, one
+              grid with a single off-curve cell; miner 0's intake through
+              VssIntakeBatch in two waves, armed on the card with
+              BISCOTTI_PALLAS_CRYPTO=1 (B2 once a fold) and disarmed
+              (native): the same sid evicted at the first fold, settle
+              True on both; a second batch with one corrupted share row
+              settles False on both; recover_update of the honest
+              workers' aggregated shares armed and disarmed equals Σq/10⁴
+              exactly; every fold, settle and recovery timed (host clock
+              after a synchronize), `prewarm` timed;
   models      each CNN family (mnist_cnn, cifar_cnn, lfw_cnn) from flat_init
               weights: parameter count, the forward pass and the
               simulator's per-contributor step (S = 8, batch 10) on the
@@ -74,15 +88,18 @@ printed as one JSON line:
               times and bound as in phase 3); a device_trace window over 3
               rounds (device ms a round, idle share, top kernels);
   bench       the eight BASELINE rows through biscotti_tpu_torch.bench
-              (device_round_s each), and one round of each CNN row on the
-              card and on the CPU port from flat_init weights;
+              (device_round_s and the crypto-inclusive keys each, the share
+              round-trip exact, the device settle on creditcard_10, the
+              mnist_100_dp_eps1 headline), and one round of each CNN row
+              on the card and on the CPU port from flat_init weights;
   trainer     the per-peer Trainer on the card against the CPU port (mnist
               softmax and mnist_cnn), one private_fun's time, and mcmc13
               Trainers at d = 7,850 and 164,266: acceptance rate, mean row
               norm against the law's 2d/ε (within 1 %), presample time;
   6. kernels  one line for every ported kernel (B1's launches from phases
               4, defenses and cnn, with its times at (716, 164266) beside
-              those at (716, 7850); B2's from the crypto phase's intake).
+              those at (716, 7850); B2's from the crypto and secagg
+              phases' intakes).
 
 Then the card's `name, power.limit` line as nvidia-smi prints it (the line
 the run's records are keyed by) and, last, the device JSON. Any
@@ -611,6 +628,165 @@ def crypto_phase(dev, grid: np.ndarray, a, b) -> dict:
     return row
 
 
+def _settled_intake(members, waves, xs, rows, ent):
+    """One miner intake through `VssIntakeBatch`: add each wave's members,
+    fold it, then settle. Returns (rejected sids a fold, B2 launches a
+    fold, settle, members, seconds a fold, settle seconds). Host clock
+    after a synchronize."""
+    import torch
+
+    from biscotti_tpu_torch.crypto import commitments as cm
+    from biscotti_tpu_torch.crypto.kernels import cuda_validate as cv
+
+    acc = cm.VssIntakeBatch(rows, CHUNKS, POLY, entropy=ent)
+    rejected, per_fold, fold_s = [], [], []
+    for wave in waves:
+        for sid in wave:
+            if not acc.add(sid, *members[sid]):
+                raise AssertionError(f"intake refused worker {sid} at add")
+        before = cv.oncurve_mask.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rejected.append(acc.fold())
+        torch.cuda.synchronize()
+        fold_s.append(time.perf_counter() - t0)
+        per_fold.append(cv.oncurve_mask.launches - before)
+    t0 = time.perf_counter()
+    settled = acc.verify(xs)
+    torch.cuda.synchronize()
+    settle_s = time.perf_counter() - t0
+    return (rejected, per_fold, settled, sorted(acc.members()), fold_s,
+            settle_s)
+
+
+def secagg_phase(dev) -> dict:
+    """The secure-aggregation plane at the bench's mnist_100_dp_eps1 width
+    (d = 7,850, C = 785, k = 10, N = 100, S = 70) with the reference
+    protocol's r = 2 layout (3 miners, 21 shares, 7 rows a miner): one
+    worker's quantize → commitments → blind rows → shares (timed), 35
+    seeded workers (one grid with a single off-curve cell), miner 0's
+    intake through VssIntakeBatch in two waves with the plane armed on the
+    card (B2 on, once a fold) and disarmed (native), a second batch with a
+    corrupted share row, and recovery armed and disarmed."""
+    from dataclasses import replace
+
+    import torch
+
+    from biscotti_tpu_torch import bench
+    from biscotti_tpu_torch.crypto import _native
+    from biscotti_tpu_torch.crypto import commitments as cm
+    from biscotti_tpu_torch.crypto import kernels
+    from biscotti_tpu_torch.crypto.kernels import cuda_validate as cv
+    from biscotti_tpu_torch.ops import secretshare as ss
+
+    t_phase = time.perf_counter()
+    if not _native.available():
+        raise AssertionError(f"native EC library did not load: "
+                             f"{_native.load_error()}")
+    cfg = replace(bench.config("mnist_100_dp_eps1"), share_redundancy=2.0)
+    d, k, total = CHUNKS * POLY, cfg.poly_size, cfg.total_shares
+    sl = ss.miner_rows(total, 0, cfg.num_miners)
+    rows = sl.stop - sl.start
+    xs_all = [int(x) for x in ss.share_xs(total)]
+    rng = np.random.default_rng(5)
+    updates = rng.normal(0.0, 0.01, (WAVE, d)).astype(np.float32)
+
+    def worker(sid: int, update):
+        q = ss.quantize(update)
+        comms, blinds = cm.vss_commit_chunks(
+            ss.to_chunks(q, k), bytes([sid]) * 32, b"secagg-round")
+        return q, comms, cm.vss_blind_rows(blinds, xs_all), \
+            ss.make_shares(q, k, total)
+
+    # the others first: worker 0 is timed with the native comb tables warm
+    rest = [worker(sid, updates[sid]) for sid in range(1, WAVE)]
+    card_update = torch.from_numpy(updates[0]).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    made = [worker(0, card_update)] + rest
+    worker_s = time.perf_counter() - t0
+    bad_sid, cell = 11, (CHUNKS // 2, 3)
+    made[bad_sid][1][cell][0] ^= 1  # low bit of one cell's x: off the curve
+    if cm._xy_to_point(made[bad_sid][1][cell].tobytes()) is not None:
+        raise AssertionError("the flipped cell is still on the curve")
+    members = {sid: (c, sh[sl], br[sl]) for sid, (_, c, br, sh)
+               in enumerate(made)}
+    honest = [sid for sid in range(WAVE) if sid != bad_sid]
+    waves = [list(range(WAVE // 2 + 1)), list(range(WAVE // 2 + 1, WAVE))]
+    ent = rng.bytes(16 * rows * CHUNKS)
+    xs = xs_all[sl]
+    corrupt = dict(members)
+    c_rows = members[3][1].copy()
+    c_rows[2, CHUNKS // 8] += 1
+    corrupt[3] = (members[3][0], c_rows, members[3][2])
+
+    # the plane's one-time costs, outside the intake's counts
+    os.environ["BISCOTTI_PALLAS_CRYPTO"] = "1"
+    kernels.set_enabled(True)
+    try:
+        t0 = time.perf_counter()
+        kernels.prewarm(d)
+        prewarm_s = time.perf_counter() - t0
+        cv.oncurve_mask.launches = 0
+        card = _settled_intake(members, waves, xs, rows, ent)
+        card_bad = _settled_intake(corrupt, [honest], xs, rows, ent)
+        b2_launches = cv.oncurve_mask.launches
+        agg = ss.aggregate_shares(np.stack([made[s][3] for s in honest]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec_card = ss.recover_update(agg, xs_all, d)
+        rec_card_s = time.perf_counter() - t0
+    finally:
+        kernels.set_enabled(False)
+        os.environ.pop("BISCOTTI_PALLAS_CRYPTO")
+    cpu = _settled_intake(members, waves, xs, rows, ent)
+    cpu_bad = _settled_intake(corrupt, [honest], xs, rows, ent)
+    t0 = time.perf_counter()
+    rec_cpu = ss.recover_update(agg, xs_all, d)
+    rec_cpu_s = time.perf_counter() - t0
+    want = np.sum([made[s][0] for s in honest], axis=0).astype(np.float64) \
+        / 10.0 ** cfg.precision
+
+    def run_row(r):
+        return {"rejected": r[0], "b2_launches_per_fold": r[1],
+                "settled": r[2], "members": len(r[3]), "fold_s": r[4],
+                "settle_s": r[5]}
+
+    row = {"d": d, "chunks": CHUNKS, "poly": POLY, "total_shares": total,
+           "rows_per_miner": rows, "workers": WAVE, "waves": [len(w) for w
+                                                              in waves],
+           "bad_sid": bad_sid, "native_loaded": True,
+           "worker_s": worker_s, "prewarm_s": prewarm_s,
+           "card": run_row(card), "cpu_native": run_row(cpu),
+           "corrupted_row": {"card": run_row(card_bad),
+                             "cpu_native": run_row(cpu_bad)},
+           "b2_launches": b2_launches,
+           "recover_card_exact": bool(np.array_equal(rec_card, want)),
+           "recover_cpu_exact": bool(np.array_equal(rec_cpu, want)),
+           "recover_card_s": rec_card_s, "recover_cpu_s": rec_cpu_s,
+           "nvidia_smi": bench.card_line(),
+           "seconds": time.perf_counter() - t_phase}
+    emit("secagg", **row)
+    for a, b in ((card, cpu), (card_bad, cpu_bad)):
+        if (a[0], a[2], a[3]) != (b[0], b[2], b[3]):
+            raise AssertionError("card and CPU intakes disagree")
+    if card[0] != [[bad_sid], []] or card_bad[0] != [[]]:
+        raise AssertionError(f"the intake evicted {card[0]}, not [{bad_sid}] "
+                             "at the first fold")
+    if card[1] != [1, 1] or card_bad[1] != [1] or b2_launches != 3:
+        raise AssertionError(f"B2 launched {card[1]} + {card_bad[1]} times, "
+                             "not once a fold")
+    if cpu[1] != [0, 0] or cpu_bad[1] != [0]:
+        raise AssertionError("B2 launched on the disarmed intake")
+    if not card[2] or card[3] != honest or card_bad[3] != honest:
+        raise AssertionError("the honest intake did not settle True")
+    if card_bad[2] or cpu_bad[2]:
+        raise AssertionError("a corrupted share row settled True")
+    if not (row["recover_card_exact"] and row["recover_cpu_exact"]):
+        raise AssertionError("recover_update is not Σq / 10^4 exactly")
+    return row
+
+
 # the CNN families and the datasets they run on (biscotti_tpu_torch/models/zoo.py)
 CNNS = [("mnist_cnn", "mnist", 164_266), ("cifar_cnn", "cifar", 62_006),
         ("lfw_cnn", "lfw", 133_000)]
@@ -892,9 +1068,19 @@ def bench_phase(dev) -> dict:
                                          card.draw_round(card.gen, 0))
         del card, cpu
     emit("bench", **out, card_vs_cpu=parity, seconds=time.perf_counter() - t_phase)
+    crypto_keys = ("worker_crypto_s", "miner_fold_s", "miner_crypto_s",
+                   "miner_crypto_oneshot_s", "recovery_s", "round_total_s",
+                   "round_total_pipelined_s")
     for name, row in out["rows"].items():
         if not (row["device_round_s"] > 0 and 0.0 <= row["final_error"] <= 1.0):
             raise AssertionError(f"bench row {name}: {row}")
+        if not (row["share_pipeline_roundtrip_ok"] is True
+                and all(row[k] > 0 for k in crypto_keys)):
+            raise AssertionError(f"bench row {name}'s crypto half: {row}")
+    if "miner_crypto_device_s" not in out["rows"]["creditcard_10"] \
+            or out["headline"]["value"] <= 0 or not out["native_ec_plane"]:
+        raise AssertionError("bench: no device settle on creditcard_10, no "
+                             "headline, or not on the native EC plane")
     return out
 
 
@@ -1174,6 +1360,7 @@ def main() -> int:
     grid, a, b = valid_grid(seed=0)
     b2 = crypto_kernel_phase(dev, grid, oncurve_sass)
     crypto = crypto_phase(dev, grid, a, b)
+    secagg = secagg_phase(dev)
 
     # models, defenses, cnn, bench, trainer: slice 3 ------------------------
     models_phase(dev)
@@ -1204,7 +1391,9 @@ def main() -> int:
         "name": "oncurve_validate", "route": "cuda",
         "source": "biscotti_tpu_torch/csrc/oncurve.cu",
         "replaces": "biscotti_tpu/crypto/kernels/pallas_validate.py:34",
-        "launches": crypto["oncurve_launches"],
+        "launches": crypto["oncurve_launches"] + secagg["b2_launches"],
+        "launches_by_phase": {"crypto": crypto["oncurve_launches"],
+                              "secagg": secagg["b2_launches"]},
         "max_abs_err": b2["max_abs_err"],
         "ms": b2["ms"], "plain_ms": b2["plain_ms"],
         "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],

@@ -1,6 +1,8 @@
-"""The port's device-round bench (`python -m biscotti_tpu_torch.bench`) on
-the CPU with a two-config list: one JSON line with the stated keys, and the
-configs built from the reference bench's keywords."""
+"""The port's crypto-inclusive bench (`python -m biscotti_tpu_torch.bench`)
+on the CPU with two-config lists: one JSON line with the stated keys, the
+crypto half's keys (the device ones where C·k ≤ 2048, from the plane armed
+on the bench's device), an exact share round-trip, the reference's
+headline, and the configs built from the reference bench's keywords."""
 
 import json
 
@@ -9,9 +11,14 @@ import pytest
 from biscotti_tpu.config import BiscottiConfig as JConfig
 from biscotti_tpu_torch import bench
 
+CRYPTO_KEYS = {"worker_crypto_s", "miner_intake", "miner_fold_s",
+               "miner_crypto_s", "miner_crypto_oneshot_s", "recovery_s",
+               "share_pipeline_roundtrip_ok", "round_total_s",
+               "round_total_pipelined_s"}
+DEVICE_KEYS = {"miner_crypto_device_s", "msm_points_per_s"}
 ROW_KEYS = {"dataset", "model", "nodes", "params", "defense", "secure_agg",
             "noising", "poison", "timed_rounds", "device_round_s",
-            "accepted_per_round", "final_error"}
+            "accepted_per_round", "final_error"} | CRYPTO_KEYS
 
 
 def test_bench_prints_one_json_line(capsys):
@@ -22,9 +29,12 @@ def test_bench_prints_one_json_line(capsys):
     assert len(lines) == 1
     out = json.loads(lines[0])
     assert out["device"] == "cpu" and out["nvidia_smi"] is None
+    assert out["native_ec_plane"] is True
     assert out["warm_rounds"] == 2 and list(out["rows"]) == names
+    assert "headline" not in out  # mnist_100_dp_eps1 did not run
     for name, row in out["rows"].items():
-        assert set(row) == ROW_KEYS, name
+        device_keys = DEVICE_KEYS if name == "creditcard_10" else set()
+        assert set(row) == ROW_KEYS | device_keys, name
         assert row["timed_rounds"] == 2 and row["device_round_s"] > 0
         assert 0.0 <= row["final_error"] <= 1.0
     assert out["rows"]["creditcard_10"]["params"] == 25
@@ -47,3 +57,48 @@ def test_bench_configs_are_the_reference_rows():
 def test_bench_rejects_unknown_configs():
     with pytest.raises(SystemExit):
         bench.main(["--configs", "nope", "--device", "cpu"])
+
+
+def test_bench_on_the_card_refuses_the_python_int_fallback(monkeypatch):
+    """On the GPU the host crypto half must run on the native plane: a
+    bench whose library did not load raises before any row."""
+    import torch
+
+    from biscotti_tpu_torch.crypto import _native
+
+    monkeypatch.setattr(bench, "resolve_device",
+                        lambda device: torch.device("cuda", 0))
+    monkeypatch.setattr(_native, "available", lambda: False)
+    monkeypatch.setattr(_native, "load_error", lambda: "g++ not found")
+    monkeypatch.setattr(bench, "bench_config", pytest.fail)
+    with pytest.raises(RuntimeError, match="native EC plane did not load: "
+                                           "g\\+\\+ not found"):
+        bench.run(["creditcard_10"])
+
+
+def test_bench_crypto_half_and_headline():
+    """One round of creditcard_10 (C·k = 30: the device settle runs, on the
+    plane armed on the CPU) and of mnist_100_dp_eps1 (C·k = 7,850: host
+    only), with the reference's headline."""
+    out = bench.run(["creditcard_10", "mnist_100_dp_eps1"], rounds=1,
+                    device="cpu")
+    cc, mn = out["rows"]["creditcard_10"], out["rows"]["mnist_100_dp_eps1"]
+    assert DEVICE_KEYS <= set(cc) and not DEVICE_KEYS & set(mn)
+    for row in (cc, mn):
+        assert CRYPTO_KEYS <= set(row)
+        assert row["share_pipeline_roundtrip_ok"] is True
+        assert all(row[k] > 0 for k in CRYPTO_KEYS
+                   if k not in ("share_pipeline_roundtrip_ok", "miner_intake"))
+        assert row["round_total_s"] == pytest.approx(
+            row["device_round_s"] + row["worker_crypto_s"]
+            + row["miner_crypto_oneshot_s"] + row["recovery_s"])
+        assert row["round_total_pipelined_s"] == pytest.approx(
+            max(row["device_round_s"], row["worker_crypto_s"],
+                row["miner_fold_s"]) + row["miner_crypto_s"]
+            + row["recovery_s"])
+    assert (cc["miner_intake"], mn["miner_intake"]) == (2, 35)
+    assert cc["msm_points_per_s"] > 0
+    head = out["headline"]
+    assert head["metric"].startswith("crypto-inclusive s/iter")
+    assert head["value"] == mn["round_total_pipelined_s"]
+    assert head["serial_s_per_iter"] == mn["round_total_s"]

@@ -418,20 +418,45 @@ def test_entry_points_without_gpu_raise(entry, monkeypatch):
         ENTRY_POINTS[entry]()
 
 
-def test_arming_switch(monkeypatch, capsys):
-    monkeypatch.setattr(kernels, "_warned", False)
+def test_arming_switch(monkeypatch):
+    """Arming records the device the seams use; with no GPU, arming for the
+    GPU raises instead of leaving the plane quietly on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     try:
-        assert not kernels.available()
-        assert "no CUDA device" in kernels.availability_reason()
-        kernels.set_enabled(True)
-        kernels.set_enabled(True)
-        assert kernels.enabled() and not kernels.active()
-        assert kernels.active_module() is None
-        assert capsys.readouterr().err.count("unavailable") == 1
-        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-        assert kernels.available() and kernels.availability_reason() == ""
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            kernels.set_enabled(True)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            kernels.set_enabled(True, device="cuda")
+        assert not kernels.active() and kernels.active_module() is None
+        assert kernels.armed_device() is None
+        kernels.set_enabled(True, device="cpu")
         assert kernels.active() and kernels.active_module() is kernels
+        assert kernels.armed_device() == torch.device("cpu")
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        kernels.set_enabled(True)
+        assert kernels.armed_device() == torch.device("cuda")
     finally:
         kernels.set_enabled(False)
-    assert not kernels.active()
+    assert not kernels.active() and kernels.armed_device() is None
+
+
+def test_prewarm_on_the_armed_device(monkeypatch):
+    """prewarm is a no-op while disarmed; armed, it runs every ladder at
+    the grid width outside the round-work counters, and a failure raises
+    (the reference swallows it)."""
+    instrument.reset_counters()
+    kernels.prewarm(8)  # disarmed
+    kernels.set_enabled(True, device="cpu")
+    try:
+        kernels.prewarm(8)
+        assert instrument.device_calls() == {}
+        assert set(prim._table_cache) == {"B", "H"}
+
+        def fault(*a, **kw):
+            raise RuntimeError("backend fault")
+
+        monkeypatch.setattr(prim, "msm", fault)
+        with pytest.raises(RuntimeError, match="backend fault"):
+            kernels.prewarm(8)
+    finally:
+        kernels.set_enabled(False)

@@ -8,7 +8,9 @@ conftest (which imports JAX):
 Tolerance: rtol 1e-4 on Krum scores, as tests/test_krum_pallas.py holds the
 TPU kernel (the kernel's fp32 Gram and the plain version's matmul sum in
 other orders); integer-valued rows are exact on both, bit for bit. The crypto
-plane is exact: on-curve masks equal, limb tensors equal bit for bit.
+plane is exact: on-curve masks equal, limb tensors equal bit for bit; its
+seams (the VSS intake's triples, the batch verifiers' verdicts,
+`recover_update`) are equal armed on the card, armed on the CPU and disarmed.
 """
 
 import numpy as np
@@ -303,3 +305,109 @@ def test_kernel_at_the_mnist_cnn_width_is_bit_identical(dev):
     first = krum_cuda.krum_scores_kernel(x, f)
     assert torch.equal(first, krum_cuda.krum_scores_kernel(x, f))
     assert _rel_err(first, krum_cuda.krum_scores_plain(x, f)) < RTOL
+
+
+# ---------------------------- slice 4: the seams that call the crypto plane
+
+
+def _armed_run(device, fn):
+    """fn() with the crypto plane armed on `device` (None: disarmed)."""
+    from biscotti_tpu_torch.crypto import kernels
+
+    if device is not None:
+        kernels.set_enabled(True, device=device)
+    try:
+        return fn()
+    finally:
+        kernels.set_enabled(False)
+
+
+def _vss_instance(seed=7, k=5, c=6, s=4):
+    from biscotti_tpu_torch.crypto import commitments as cm
+
+    rng = np.random.default_rng(seed)
+    chunks = rng.integers(-200, 200, (c, k)).astype(np.int64)
+    comms, blinds = cm.vss_commit_chunks(chunks, b"seed" * 8, b"ctx")
+    xs = list(range(1, s + 1))
+    rows = np.stack([[cm.eval_poly(chunks[ci], x) for ci in range(c)]
+                     for x in xs]).astype(np.int64)
+    br = cm.vss_blind_rows(blinds, xs)
+    ent = bytes(rng.integers(0, 256, 16 * s * c, dtype=np.uint8))
+    return comms, rows, br, xs, ent, (s, c, k)
+
+
+@pytest.mark.parametrize("case", ["honest", "off_curve", "bad_row", "waves"])
+def test_vss_intake_card_matches_cpu(dev, case, monkeypatch):
+    """The intake triples (rejected sids a fold, settle, members) armed on
+    the card equal those armed on the CPU and disarmed; B2 once a fold."""
+    from biscotti_tpu_torch.crypto import commitments as cm
+
+    comms, rows, br, xs, ent, dims = _vss_instance()
+    badc = comms.copy()
+    badc[0, 0, 0] ^= 1
+    rows_bad = rows.copy()
+    rows_bad[0, 0] += 1
+    good = (comms, rows, br)
+    waves, want = {
+        "honest": ([{1: good, 2: good}], ([[]], True, [1, 2])),
+        "off_curve": ([{1: good, 2: (badc, rows, br)}], ([[2]], True, [1])),
+        "bad_row": ([{1: (comms, rows_bad, br)}], ([[]], False, [1])),
+        "waves": ([{1: good, 2: good}, {3: (badc, rows, br)}, {4: good}],
+                  ([[], [3], []], True, [1, 2, 4]))}[case]
+
+    def run():
+        acc = cm.VssIntakeBatch(*dims, entropy=ent)
+        rejected = []
+        for wave in waves:
+            for sid, member in wave.items():
+                assert acc.add(sid, *member)
+            rejected.append(acc.fold())
+        return rejected, acc.verify(xs), sorted(acc.members())
+
+    monkeypatch.setenv("BISCOTTI_PALLAS_CRYPTO", "1")
+    before = cv.oncurve_mask.launches
+    on_card = _armed_run(dev, run)
+    assert cv.oncurve_mask.launches == before + len(waves)
+    assert on_card == _armed_run("cpu", run) == _armed_run(None, run) == want
+
+
+def test_batch_verifiers_card_match_cpu(dev):
+    from biscotti_tpu_torch.crypto import commitments as cm
+
+    rng = np.random.default_rng(5)
+    key = cm.CommitKey.generate(30, label=b"cryptokernel-test")
+    items = [(cm.commit_update(q, key), q) for q in (
+        rng.integers(-500, 500, 30).astype(np.int64) for _ in range(4))]
+    ent = bytes(rng.integers(0, 256, 64, dtype=np.uint8))
+    bad = list(items)
+    bad[2] = (bad[2][0], bad[2][1] + 1)
+    seeds = [bytes([i]) * 32 for i in range(4)]
+    trips = [(ed.public_key(s), b"m", cm.schnorr_sign(s, b"m")) for s in seeds]
+    tampered = trips[:1] + [(trips[1][0], b"x", trips[1][2])] + trips[2:]
+
+    def run():
+        return (cm.batch_verify_commitments(items, key, entropy=ent),
+                cm.batch_verify_commitments(bad, key, entropy=ent),
+                cm.batch_schnorr_verify(trips),
+                cm.batch_schnorr_verify(tampered))
+
+    assert _armed_run(dev, run) == _armed_run(None, run) \
+        == (True, False, True, False)
+
+
+def test_recover_coeffs_card_matches_cpu(dev):
+    from biscotti_tpu_torch.ops import secretshare as ss
+
+    rng = np.random.default_rng(11)
+    qs = rng.integers(-10**4, 10**4, (35, 7850)).astype(np.int64)
+    agg = ss.aggregate_shares(np.stack([ss.make_shares(q, 10, 21)
+                                        for q in qs]))
+    xs = ss.share_xs(21)
+
+    def run():
+        return ss.recover_update(agg, xs, 7850)
+
+    on_card = _armed_run(dev, run)
+    assert np.array_equal(on_card, _armed_run("cpu", run))
+    assert np.array_equal(on_card, _armed_run(None, run))
+    assert np.array_equal(on_card, qs.sum(axis=0) / 10.0 ** 4)

@@ -37,6 +37,10 @@ def test_port_modules_import_without_jax_or_reference():
         "telemetry.registry", "tools.conv_precision", "utils",
         "utils.profiling")}
     assert slice3 <= set(mods), slice3 - set(mods)
+    slice4 = {"biscotti_tpu_torch." + m for m in (
+        "crypto._native", "crypto.vrf", "crypto.dkg", "ops.secretshare",
+        "parallel.roles")}
+    assert slice4 <= set(mods), slice4 - set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
