@@ -16,7 +16,12 @@ on-curve validator as a hand-written Hopper kernel
 Slice 3 is the rest of the single-device simulator (the CNN families,
 every defense, the mcmc13 mechanism, `run_scan`, the metrics hook), the
 per-peer `Trainer` (`models/trainer.py`) and the device-round bench
-(`bench.py`).
+(`bench.py`). Slice 4 is the secure-aggregation plane (`ops/secretshare.py`,
+`crypto/commitments.py`, `crypto/_native.py`, `crypto/vrf.py`,
+`crypto/dkg.py`, `parallel/roles.py`). Slice 5 is the ledger and wire
+plane (`ledger/`, `utils/checkpoint.py`, `runtime/`: codecs, frames,
+packers, the protocol table and the RPC layer) and the bench's byte
+columns.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`
 (`device.resolve_device`); with no GPU and no explicit CPU choice they raise.

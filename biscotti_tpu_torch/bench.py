@@ -30,6 +30,15 @@ the python-int fallback is ~30x slower.
 `round_total_pipelined_s` is max(device, worker, fold) + settle + recovery,
 the reference's depth-1 one-peer-per-host composition. Host times are the
 host clock; every device entry point ends in a host copy of its result.
+The byte columns (bench.py:396-417) are the cluster's protocol bytes for
+one round, from the port's own block, codec, frame and wire packers with
+the row's final weights (float64, off the card) as the representative
+vector and the last round's accepted count: `wire_bytes_per_round` under
+raw64, `wire_bytes_per_round_f32_zlib` under f32+zlib, their ratio
+`wire_compression_x`, and the bytes that cross hosts on a 2-host fleet,
+flat (`cross_host_bytes_per_round`) and through the aggregation overlay
+(`cross_host_bytes_per_round_overlay`), with their ratio
+`overlay_cross_host_saving_x`.
 
 Standard output is one JSON line: the device, the card's `name,
 power.limit` as nvidia-smi prints it (null on the CPU), whether the native
@@ -37,8 +46,7 @@ EC plane ran the host crypto, one row a config
 and, when mnist_100_dp_eps1 ran, the reference's headline (its pipelined
 crypto-inclusive s/iter). Left out: the MFU column (bench.py:225-232 counts
 dense-layer FLOPs only and undercounts the convolutions by its own
-comment) and the wire and cross-host byte columns (bench.py:396-417),
-which wait for the port's wire and overlay planes.
+comment).
 """
 
 from __future__ import annotations
@@ -57,8 +65,12 @@ from biscotti_tpu_torch.crypto import _native
 from biscotti_tpu_torch.crypto import commitments as cm
 from biscotti_tpu_torch.crypto import kernels
 from biscotti_tpu_torch.device import resolve_device, synchronize
+from biscotti_tpu_torch.ledger.block import Block, BlockData, Update
 from biscotti_tpu_torch.ops import secretshare as ss
 from biscotti_tpu_torch.parallel.sim import Simulator
+from biscotti_tpu_torch.runtime import codecs as wcodecs
+from biscotti_tpu_torch.runtime import messages as msgs
+from biscotti_tpu_torch.runtime import wire as rwire
 
 WARM_ROUNDS = 2
 # the reference's default device-settle cap (C·k points): the eager device
@@ -116,6 +128,104 @@ def _timeit(fn: Callable, warm: int = 1, iters: int = 3) -> float:
     for _ in range(iters):
         fn()
     return (time.perf_counter() - t0) / iters
+
+
+def _round_frame_bytes(cfg: BiscottiConfig, w64: np.ndarray, accepted: int,
+                       codec: str = wcodecs.RAW) -> Tuple[int, int, int]:
+    """(verify, submit, block) frame sizes of one round, from encoding the
+    frames themselves with `w64` as the representative delta and model
+    (bench.py:73-133)."""
+    wc = wcodecs.get(codec)
+    kw = dict(codec=None if wc.name == wcodecs.RAW else wc.name)
+    d = len(w64)
+    delta, _ = wc.transform(np.asarray(w64, np.float64),
+                            topk_k=max(1, int(round(cfg.wire_topk * d))))
+    gw = wc.transform_dense(np.asarray(w64, np.float64))
+    it = 1
+    # worker -> verifier: the redacted update, its noised copy in float32
+    redacted = Update(source_id=1, iteration=it,
+                      delta=np.zeros(0, np.float64), commitment=b"\0" * 32,
+                      noised_delta=np.asarray(delta, np.float32))
+    verify = len(msgs.encode("VerifyUpdateKRUM", *rwire.pack_update(redacted),
+                             **kw))
+    if cfg.secure_agg:
+        c = ss.num_chunks(d, cfg.poly_size)
+        submit = len(msgs.encode("RegisterSecret", {
+            "iteration": it, "source_id": 1, "miner_index": 0,
+            "commitment": "00" * 32,
+        }, {
+            "share_rows": np.ones((cfg.shares_per_miner, c), np.int64),
+            "blind_rows": np.ones((cfg.shares_per_miner, c, 32), np.uint8),
+            "comms": np.ones((c, cfg.poly_size, 64), np.uint8),
+        }, **kw))
+        blk_updates = [Update(source_id=1, iteration=it,
+                              delta=np.zeros(0, np.float64),
+                              commitment=b"\0" * 32, accepted=True)]
+    else:
+        u = Update(source_id=1, iteration=it, delta=delta,
+                   commitment=b"\0" * 32)
+        submit = len(msgs.encode("RegisterUpdate", *rwire.pack_update(u), **kw))
+        blk_updates = [Update(source_id=1, iteration=it, delta=delta,
+                              commitment=b"\0" * 32, accepted=True)]
+    blk = Block(data=BlockData(iteration=it, global_w=gw,
+                               deltas=blk_updates * max(1, accepted)),
+                prev_hash=b"\0" * 32,
+                stake_map={i: 10 for i in range(cfg.num_nodes)}).seal()
+    block = len(msgs.encode("RegisterBlock", *rwire.pack_block(blk), **kw))
+    return verify, submit, block
+
+
+def wire_round_bytes(cfg: BiscottiConfig, w64: np.ndarray, accepted: int,
+                     codec: str = wcodecs.RAW) -> int:
+    """The cluster's protocol bytes for one round (bench.py:136-154):
+    num_samples × (num_verifiers × verify + num_miners × submit)
+    + (num_nodes − 1) × block."""
+    verify, submit, block = _round_frame_bytes(cfg, w64, accepted, codec)
+    n_s = cfg.num_samples
+    return int(n_s * (cfg.num_verifiers * verify + cfg.num_miners * submit)
+               + (cfg.num_nodes - 1) * block)
+
+
+def cross_host_round_bytes(cfg: BiscottiConfig, w64: np.ndarray, accepted: int,
+                           codec: str = wcodecs.RAW, hosts: int = 2,
+                           overlay: bool = False) -> int:
+    """The bytes of one round that cross hosts on a `hosts`-host fleet with
+    peers split evenly (bench.py:157-190): (hosts − 1)/hosts of a uniform
+    fan-out; with the aggregation overlay, verify traffic unchanged,
+    secure-agg shares one aggregate per (subtree, miner), plain updates one
+    copy per remote miner-holding host, the block once per remote
+    subtree."""
+    verify, submit, block = _round_frame_bytes(cfg, w64, accepted, codec)
+    n, n_s = cfg.num_nodes, cfg.num_samples
+    m, v = cfg.num_miners, cfg.num_verifiers
+    h = max(1, int(hosts))
+    remote_frac = (h - 1) / h
+    if not overlay:
+        return int(remote_frac * (n_s * (v * verify + m * submit)
+                                  + (n - 1) * block))
+    cross = remote_frac * n_s * v * verify
+    if cfg.secure_agg:
+        cross += remote_frac * h * m * submit
+    else:
+        cross += n_s * min(m, h - 1) * submit
+    cross += (h - 1) * block
+    return int(cross)
+
+
+def byte_columns(cfg: BiscottiConfig, w64: np.ndarray, accepted: int) -> dict:
+    """The six byte columns of a row, computed as bench.py:396-417 does."""
+    wire_raw = wire_round_bytes(cfg, w64, accepted, codec="raw64")
+    wire_f32z = wire_round_bytes(cfg, w64, accepted, codec="f32+zlib")
+    xh_flat = cross_host_round_bytes(cfg, w64, accepted, hosts=2,
+                                     overlay=False)
+    xh_overlay = cross_host_round_bytes(cfg, w64, accepted, hosts=2,
+                                        overlay=True)
+    return {"wire_bytes_per_round": wire_raw,
+            "wire_bytes_per_round_f32_zlib": wire_f32z,
+            "wire_compression_x": round(wire_raw / max(1, wire_f32z), 2),
+            "cross_host_bytes_per_round": xh_flat,
+            "cross_host_bytes_per_round_overlay": xh_overlay,
+            "overlay_cross_host_saving_x": round(xh_flat / max(1, xh_overlay), 2)}
 
 
 def crypto_times(cfg: BiscottiConfig, w: np.ndarray, device_s: float,
@@ -222,8 +332,9 @@ def bench_config(cfg: BiscottiConfig, rounds: int,
            "noising": cfg.noising, "poison": cfg.poison_fraction,
            "timed_rounds": rounds, "device_round_s": device_s,
            "accepted_per_round": int(mask.sum()), "final_error": float(err)}
-    row.update(crypto_times(cfg, w.double().cpu().numpy(), device_s,
-                            sim.device))
+    w64 = w.double().cpu().numpy()
+    row.update(crypto_times(cfg, w64, device_s, sim.device))
+    row.update(byte_columns(cfg, w64, row["accepted_per_round"]))
     return row
 
 

@@ -1,5 +1,6 @@
 """Slim copy of `biscotti_tpu/config.py`: the fields the simulator, the
-per-peer `Trainer` and the secure-aggregation plane read.
+per-peer `Trainer`, the secure-aggregation plane, the wire and protocol
+planes and the bench's byte columns read.
 
 The keyword names, defaults and construction checks are the reference's,
 so one dict builds both packages' configs. `FaultPlan` keeps only the frame-drop subset
@@ -86,6 +87,19 @@ class BiscottiConfig:
     convergence_error: float = 0.05
     fault_plan: FaultPlan = field(default_factory=FaultPlan)
 
+    # wire and protocol planes (runtime/codecs.py, runtime/protocol.py;
+    # reference config.py:320-389): the payload codec, chunking threshold
+    # and top-k fraction; the overlay (and its subtree size, which the
+    # overlay's check reads), trace stamping and the protocol version pin
+    # that `protocol.advertised` reads
+    overlay: bool = False
+    overlay_group: int = 0
+    wire_codec: str = "raw64"
+    wire_chunk_bytes: int = 4 * 1024 * 1024
+    wire_topk: float = 0.05
+    trace: bool = False
+    protocol_version: int = -1
+
     logreg_alpha: float = 1e-2
     grad_clip: float = 100.0
     batch_size: int = 10
@@ -106,6 +120,32 @@ class BiscottiConfig:
                 and self.defense == Defense.TRIMMED_MEAN:
             raise ValueError(
                 f"trim_fraction={self.trim_fraction} must be in [0, 0.5)")
+        # the wire and protocol checks (reference config.py:426-438,
+        # 530-549)
+        from biscotti_tpu_torch.runtime.codecs import WireCodecError, parse_codec
+        from biscotti_tpu_torch.runtime.protocol import CURRENT_VERSION
+
+        try:
+            parse_codec(self.wire_codec)
+        except WireCodecError as e:
+            raise ValueError(f"wire_codec: {e}") from None
+        if not (0.0 < self.wire_topk <= 1.0):
+            raise ValueError(
+                f"wire_topk={self.wire_topk} must be in (0, 1]")
+        if self.wire_chunk_bytes < 0:
+            raise ValueError("wire_chunk_bytes must be >= 0")
+        if not (-1 <= self.protocol_version <= CURRENT_VERSION):
+            raise ValueError(
+                f"protocol_version={self.protocol_version} must be -1 "
+                f"(current) or a historical row in [0, {CURRENT_VERSION}] "
+                "(runtime/protocol.py version table; docs/PROTOCOL.md)")
+        if self.overlay and self.overlay_group < 2:
+            raise ValueError(
+                "overlay=True requires overlay_group >= 2 (peers per "
+                "aggregation subtree; the hive launcher defaults it to "
+                "its co-hosted span — docs/OVERLAY.md)")
+        if self.overlay_group < 0:
+            raise ValueError("overlay_group must be >= 0")
 
     @property
     def num_samples(self) -> int:

@@ -3,13 +3,22 @@
 // _select_kth_and_sum).
 //
 // For each row i of x[n, d] (fp32, row-major):
-//   D_ij    = max(sq_i + sq_j - 2 x_i.x_j, 0),  D_ii = +inf
+//   D_ij    = max(fma(-2, x_i.x_j, sq_i + sq_j), 0),  plus +inf when i = j
 //   t_i     = the exact k-th smallest D_ij of the row
 //   score_i = sum(D_ij < t_i) + (k - count(D_ij < t_i)) * t_i
 // which is the sum of the k = n - f - 2 smallest off-diagonal distances, ties
 // at the threshold counted as a sorted prefix would count them. sq holds the
 // rows' fp32 sums of squares, computed by the caller as the reference
 // computes them outside its kernel.
+//
+// Non-finite rows follow the plain version's rule (ops/krum.py docstring),
+// never the card's NaN bits (inf - inf is 0x7fffffff here, 0xffc00000 on
+// the CPU the reference ran on). The epilogue stores each D_ij as a 31-bit
+// order key: a NaN from a row with a NaN input (sq_i or sq_j NaN) ranks
+// after +inf, any other NaN below every distance, a number v >= 0 as its
+// bits + 1, and column padding last. The select bisects on those keys; a
+// row whose k nearest hold a generated NaN scores 0xffc00000, one whose
+// k-th nearest is a propagated NaN 0x7fc00000, as the plain version does.
 //
 // Bound, by pipe. D is symmetric, so the scores need the n(n-1)/2 distinct
 // off-diagonal dot products: n(n-1)*d operations, against 4*(n*d + n) bytes
@@ -51,17 +60,17 @@
 //    its partial tile to a workspace and bumps the tile's integer counter,
 //    and the last to arrive sums the partials in split order 0, 1, ..., so
 //    the scores are bit-identical from call to call: no float atomics. The
-//    epilogue forms D = (sq_i + sq_j) - 2G, clamped by (v > 0), which also
-//    maps -0 to +0 (whose bits would order above every distance), with the
-//    diagonal at +inf, and stores D[I, J] and, for an off-diagonal tile, its
-//    transpose D[J, I] from registers as float4 (every 32-byte sector
-//    written whole) into an [n, n_pad] buffer. Columns past n are never
-//    read.
-// 3. krum_select_kernel: one warp a row stages the row of D in shared
-//    memory (columns past n read as +inf, as the reference masks its
+//    epilogue forms D = fma(-2, G, sq_i + sq_j) (one rounding, as the
+//    reference's fused expression), clamped by (v > 0), which also maps -0
+//    to +0 (whose bits would order above every distance), plus +inf on the
+//    diagonal, and stores the order keys of D[I, J] and, for an
+//    off-diagonal tile, of its transpose D[J, I] from registers as uint4
+//    (every 32-byte sector written whole) into an [n, n_pad] buffer.
+// 3. krum_select_kernel: one warp a row stages the row's keys in shared
+//    memory (columns past n as the padding key, as the reference masks its
 //    padding), finds the exact k-th smallest by the reference's 31-step
-//    bisection on the float bit pattern (non-negative floats order like
-//    their bits), counting with warp reductions, and forms the score.
+//    bisection (the keys are below 2^31), counting with warp reductions,
+//    and forms the score from the keys' values.
 //
 // What this design does about the four causes that held back the first
 // port of this kernel (one block a few rows, streaming all of x past them
@@ -84,18 +93,28 @@ constexpr int kOperand = kK * kPitch;       // floats of one operand k-tile
 constexpr int kLoads = kTile * kK / 4 / kThreads;  // float4 a thread an operand
 constexpr int kPadThreads = 256;
 constexpr int kSelWarps = 4;                // rows of D a select block
-constexpr int kBits = 31;                   // sign bit of a distance is never set
+constexpr int kBits = 31;                   // every order key is below 2^31
+// order keys of a distance (see the head comment)
+constexpr unsigned kKeyNearNaN = 0u;           // NaN with no NaN input: nearest
+constexpr unsigned kKeyFarNaN = 0x7fc00001u;   // NaN a NaN input propagated
+constexpr unsigned kKeyPad = 0x7fffffffu;      // column padding: never selected
+constexpr unsigned kScoreNearNaN = 0xffc00000u;
+constexpr unsigned kScoreFarNaN = 0x7fc00000u;
 constexpr int kMaxSmem = 232448;            // opt-in shared memory of one block
 static_assert(kLoads * kThreads * 4 == kTile * kK, "whole float4 a thread");
 
-__device__ __forceinline__ float distance(const float* __restrict__ sq, int n,
-                                          int i, int j, float g) {
-  if (i == j) return INFINITY;
-  if (j >= n) return 0.f;  // column padding: never read
-  // (sq_i + sq_j) - 2g in the plain version's order; 2g is exact, so a
-  // contraction into one fma rounds the same
-  const float v = (sq[i] + sq[j]) - 2.f * g;
-  return v > 0.f ? v : 0.f;
+__device__ __forceinline__ unsigned distance(const float* __restrict__ sq,
+                                             int n, int i, int j, float g) {
+  if (j >= n) return kKeyPad;
+  const float si = sq[i], sj = sq[j];
+  if (isnan(si) || isnan(sj)) return kKeyFarNaN;
+  // (sq_i + sq_j) - 2g in one rounding, as the plain version forms it;
+  // only where 2g overflows does it differ from two roundings
+  float v = fmaf(-2.f, g, si + sj);
+  if (isnan(v)) return kKeyNearNaN;
+  v = v > 0.f ? v : 0.f;
+  if (i == j) v += INFINITY;  // the reference adds +inf to the diagonal
+  return __float_as_uint(v) + 1u;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -128,7 +147,7 @@ krum_pad_kernel(const float* __restrict__ x, float* __restrict__ xp,
 // one upper Gram tile (I <= J), one split of d; grid (tiles, splits)
 __global__ void __launch_bounds__(kThreads, 2)
 krum_gram_kernel(const float* __restrict__ xp, const float* __restrict__ sq,
-                 float* __restrict__ dist, float* __restrict__ partials,
+                 unsigned* __restrict__ dist, float* __restrict__ partials,
                  int* __restrict__ counters, int n, int n_pad, int d_pad,
                  int splits) {
   // two buffers of two operands, each [kK][kPitch], feature-major
@@ -261,7 +280,7 @@ krum_gram_kernel(const float* __restrict__ xp, const float* __restrict__ sq,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int j = j0 + ct(4 * h);
-      *reinterpret_cast<float4*>(dist + (size_t)i * n_pad + j) = make_float4(
+      *reinterpret_cast<uint4*>(dist + (size_t)i * n_pad + j) = make_uint4(
           distance(sq, n, i, j, acc[u][4 * h]),
           distance(sq, n, i, j + 1, acc[u][4 * h + 1]),
           distance(sq, n, i, j + 2, acc[u][4 * h + 2]),
@@ -276,7 +295,7 @@ krum_gram_kernel(const float* __restrict__ xp, const float* __restrict__ sq,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int j = i0 + rt(4 * h);
-      *reinterpret_cast<float4*>(dist + (size_t)i * n_pad + j) = make_float4(
+      *reinterpret_cast<uint4*>(dist + (size_t)i * n_pad + j) = make_uint4(
           distance(sq, n, i, j, acc[4 * h][v]),
           distance(sq, n, i, j + 1, acc[4 * h + 1][v]),
           distance(sq, n, i, j + 2, acc[4 * h + 2][v]),
@@ -285,25 +304,25 @@ krum_gram_kernel(const float* __restrict__ xp, const float* __restrict__ sq,
   }
 }
 
-// exact k-th smallest of each row of D by bisection on the bit pattern, one
-// warp a row (the reference's _select_kth_and_sum), and the row's score
+// exact k-th smallest of each row's order keys by bisection, one warp a row
+// (the reference's _select_kth_and_sum), and the row's score
 __global__ void __launch_bounds__(kSelWarps * 32)
-krum_select_kernel(const float* __restrict__ dist, float* __restrict__ out,
+krum_select_kernel(const unsigned* __restrict__ dist, float* __restrict__ out,
                    int n, int ldd, int k) {
-  extern __shared__ float4 rows[];
+  extern __shared__ uint4 rows[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int i = blockIdx.x * kSelWarps + warp;
   if (i >= n) return;
   const int q4 = ldd / 4;
-  float4* row = rows + (size_t)warp * q4;
-  const float4* src = reinterpret_cast<const float4*>(dist + (size_t)i * ldd);
+  uint4* row = rows + (size_t)warp * q4;
+  const uint4* src = reinterpret_cast<const uint4*>(dist + (size_t)i * ldd);
   for (int q = lane; q < q4; q += 32) {
-    float4 v = src[q];
+    uint4 v = src[q];
     const int j = 4 * q;
-    if (j >= n) v.x = INFINITY;  // padding, never written, as +inf
-    if (j + 1 >= n) v.y = INFINITY;
-    if (j + 2 >= n) v.z = INFINITY;
-    if (j + 3 >= n) v.w = INFINITY;
+    if (j >= n) v.x = kKeyPad;
+    if (j + 1 >= n) v.y = kKeyPad;
+    if (j + 2 >= n) v.z = kKeyPad;
+    if (j + 3 >= n) v.w = kKeyPad;
     row[q] = v;
   }
   __syncwarp();
@@ -313,28 +332,38 @@ krum_select_kernel(const float* __restrict__ dist, float* __restrict__ out,
     const unsigned cand = ans | (1u << (kBits - 1 - t));
     int cnt = 0;
     for (int q = lane; q < q4; q += 32) {
-      const float4 v = row[q];
-      cnt += (__float_as_uint(v.x) < cand) + (__float_as_uint(v.y) < cand) +
-             (__float_as_uint(v.z) < cand) + (__float_as_uint(v.w) < cand);
+      const uint4 v = row[q];
+      cnt += (v.x < cand) + (v.y < cand) + (v.z < cand) + (v.w < cand);
     }
-    // count(D < cand) >= k means the k-th smallest is below cand
+    // count(key < cand) >= k means the k-th smallest is below cand
     if (__reduce_add_sync(0xffffffffu, cnt) < k) ans = cand;
   }
-  int cnt = 0;
+  int cnt = 0, near_nan = 0;
   float sum = 0.f;
   for (int q = lane; q < q4; q += 32) {
-    const float4 v = row[q];
-    const float e[4] = {v.x, v.y, v.z, v.w};
+    const uint4 v = row[q];
+    const unsigned e[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      if (__float_as_uint(e[c]) < ans) {
+    for (int c = 0; c < 4; ++c) {
+      near_nan |= e[c] == kKeyNearNaN;
+      if (e[c] != kKeyNearNaN && e[c] < ans) {  // a number below the k-th
         ++cnt;
-        sum += e[c];
+        sum += __uint_as_float(e[c] - 1u);
       }
+    }
   }
   cnt = __reduce_add_sync(0xffffffffu, cnt);
+  near_nan = __any_sync(0xffffffffu, near_nan);
   sum = warp_sum(sum);
-  if (lane == 0) out[i] = sum + (float)(k - cnt) * __uint_as_float(ans);
+  if (lane != 0) return;
+  // a generated NaN is always among the k nearest; a propagated one counts
+  // only as the k-th (every NaN is after it)
+  if (near_nan)
+    out[i] = __uint_as_float(kScoreNearNaN);
+  else if (ans == kKeyFarNaN)
+    out[i] = __uint_as_float(kScoreFarNaN);
+  else
+    out[i] = sum + (float)(k - cnt) * __uint_as_float(ans - 1u);
 }
 
 }  // namespace
@@ -342,7 +371,8 @@ krum_select_kernel(const float* __restrict__ dist, float* __restrict__ out,
 extern "C" {
 
 // Krum scores of x[n, d] into out[n]; sq[n] holds the rows' squared norms.
-// Scratch, allocated by the caller: xp [n_pad, d_pad]; dist [n, n_pad]; with
+// Scratch, allocated by the caller: xp [n_pad, d_pad]; dist [n, n_pad] (4
+// bytes an entry, the order keys of D); with
 // splits > 1, partials [tiles * splits * 128 * 128] and counters [tiles],
 // tiles = T (T + 1) / 2 for T = n_pad / 128 (both may be null when
 // splits == 1). n_pad is a multiple of 128, d_pad of 16, 1 <= splits <=
@@ -357,7 +387,7 @@ int krum_scores_f32(const float* x, const float* sq, float* out, float* xp,
     return (int)cudaErrorInvalidValue;
   if (splits > 1 && (partials == nullptr || counters == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t sel_smem = (size_t)kSelWarps * n_pad * sizeof(float);
+  const size_t sel_smem = (size_t)kSelWarps * n_pad * sizeof(unsigned);
   if (sel_smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int T = n_pad / kTile;
@@ -367,8 +397,9 @@ int krum_scores_f32(const float* x, const float* sq, float* out, float* xp,
       x, xp, splits > 1 ? counters : nullptr, tiles, n, d, d_pad);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  unsigned* keys = reinterpret_cast<unsigned*>(dist);
   krum_gram_kernel<<<dim3(tiles, splits), kThreads, 0, s>>>(
-      xp, sq, dist, partials, counters, n, n_pad, d_pad, splits);
+      xp, sq, keys, partials, counters, n, n_pad, d_pad, splits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(krum_select_kernel,
@@ -376,7 +407,7 @@ int krum_scores_f32(const float* x, const float* sq, float* out, float* xp,
                              (int)sel_smem);
   if (err != cudaSuccess) return (int)err;
   krum_select_kernel<<<(n + kSelWarps - 1) / kSelWarps, kSelWarps * 32,
-                       sel_smem, s>>>(dist, out, n, n_pad, k);
+                       sel_smem, s>>>(keys, out, n, n_pad, k);
   return (int)cudaGetLastError();
 }
 

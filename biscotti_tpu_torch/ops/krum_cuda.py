@@ -6,9 +6,12 @@ a CUDA tensor: three CUDA kernels (copy x into a zero-padded buffer, the
 upper Gram tiles in fp32 FMAs with a deterministic split-K, the exact row
 select); the source's head comment gives the design, its bound and why the
 tensor cores are not used. On a CPU tensor it computes the kernel's
-plain PyTorch version, `krum_scores_plain` (D from one matmul, the diagonal
-at +inf, an ascending sort, the first k summed). A build or launch error
-raises; nothing falls back to the plain version on the card.
+plain PyTorch version, `krum_scores_plain` (D from one matmul, +inf added
+on the diagonal, an ascending sort, the first k summed; non-finite rows
+ranked and scored by ops/krum.py's rule, which the kernel's order keys
+reproduce). A build or launch error raises; nothing falls back to the
+plain version on the card. Scores from either rank for acceptance through
+`ops/krum.py::rank_scores`.
 
 `krum_scores_auto` mirrors the reference's dispatch: inside the window
 [KERNEL_MIN_N, KERNEL_MAX_N] a CUDA tensor goes to the kernel, everything
@@ -55,7 +58,8 @@ def plan(n: int, d: int, sms: int) -> tuple[int, int, int, int]:
 
 def workspace(n: int, d: int, device: torch.device) -> dict:
     """The kernel's scratch at x[n, d], allocated on `device`, with its
-    plan: xp [n_pad, d_pad]; dist [n, n_pad]; partials and counters of the
+    plan: xp [n_pad, d_pad]; dist [n, n_pad] (4 bytes an entry, which the
+    kernel fills with the order keys of D); partials and counters of the
     split-K (empty when d is not split)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     n_pad, d_pad, tiles, splits = plan(n, d, sms)

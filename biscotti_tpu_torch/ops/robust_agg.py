@@ -7,7 +7,8 @@ Where the two frameworks differ, the port follows the reference:
   * medians average the two middle values for even n (`jnp.median`);
     `torch.median` returns the lower one, so `_median` sorts;
   * Multi-Krum's `lax.top_k(-scores, m)` puts the lower index first on
-    ties; the port ranks with a stable ascending sort;
+    ties; the port ranks in Krum's accept order (`ops/krum.rank_scores`),
+    stable sorts that also rank non-finite scores as the reference does;
   * FoolsGold's pardoning, clip and logit transform are copied expression
     for expression, so masks compare exactly.
 
@@ -28,16 +29,14 @@ def multikrum_m(n: int, num_adversaries: int) -> int:
 def multikrum_accept_mask(deltas: torch.Tensor, num_adversaries: int,
                           m: int = 0) -> torch.Tensor:
     """Dense bool mask of the m lowest-Krum-scored updates (m = n − f − 2
-    by default), ties to the lower index."""
+    by default), in Krum's accept order (`ops/krum.rank_scores`: ties to
+    the lower index, non-finite scores as the reference ranks them)."""
+    from biscotti_tpu_torch.ops.krum import accept_mask
     from biscotti_tpu_torch.ops.krum_cuda import krum_scores_auto
 
     n = deltas.shape[0]
     keep = min(m if m > 0 else multikrum_m(n, num_adversaries), n)
-    scores = krum_scores_auto(deltas, num_adversaries)
-    idx = torch.sort(scores, stable=True).indices[:keep]
-    mask = torch.zeros(n, dtype=torch.bool, device=deltas.device)
-    mask[idx] = True
-    return mask
+    return accept_mask(krum_scores_auto(deltas, num_adversaries), keep)
 
 
 def _trim_count(n: int, trim_frac: float) -> int:

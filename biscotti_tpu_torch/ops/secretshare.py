@@ -54,14 +54,25 @@ def total_shares_for(num_miners: int, poly_size: int = POLY_SIZE) -> int:
     return math.ceil(2 * poly_size / num_miners) * num_miners
 
 
+_I64 = np.iinfo(np.int64)
+
+
 def quantize(delta, precision: int = PRECISION) -> np.ndarray:
     """float (numpy array or torch tensor, on any device) → int64 at
     10^precision, truncated toward zero like Go's int64() conversion
-    (ref: kyber.go:698-710); the product is taken in float64."""
+    (ref: kyber.go:698-710); the product is taken in float64. Outside the
+    int64 range it saturates, and NaN gives 0, as the reference's XLA
+    convert does (numpy's cast would give INT64_MIN with a warning).
+    Share-path callers that mirror the reference's own numpy worker cast
+    (peer.py:853-854, `np.trunc(...).astype(np.int64)`) keep that cast."""
     if isinstance(delta, torch.Tensor):
         delta = delta.detach().cpu().numpy()
-    scaled = np.asarray(delta).astype(np.float64) * (10.0 ** precision)
-    return np.trunc(scaled).astype(np.int64)
+    scaled = np.trunc(np.asarray(delta).astype(np.float64) * (10.0 ** precision))
+    high, low = scaled >= 2.0 ** 63, scaled < -(2.0 ** 63)
+    q = np.where(high | low | np.isnan(scaled), 0.0, scaled).astype(np.int64)
+    q[high] = _I64.max
+    q[low] = _I64.min
+    return q
 
 
 def dequantize(q, precision: int = PRECISION) -> np.ndarray:

@@ -18,7 +18,12 @@ printed as one JSON line:
               (rtol 1e-4 on scores) and a cancellation-heavy case (rows
               sharing one large mean) whose accept set must be identical
               and whose error against float64 scores must be no larger
-              than the plain version's (10 % slack); at every shape two
+              than the plain version's (10 % slack); the non-finite cases
+              of ROADMAP C1 at (716, 7850) (a row whose squared norm
+              overflows, +inf, −inf, a NaN input), B1 and the plain
+              version on the card against the plain version on the CPU:
+              accept sets equal, NaN bits and infinities equal, finite
+              scores within rtol 1e-4; at every shape two
               calls and a direct launch equal bit for bit; the wrapper's,
               the kernel's alone (the C interface on scratch allocated
               once), the plain version's and the fp32 cuBLAS Gram x @ x.T's
@@ -31,9 +36,11 @@ printed as one JSON line:
               kernel launched exactly once per round;
   5. parity   the kernel on the main path's own updates, its error held
               below half the Krum score gap at the accept boundary, its
-              times as in phase 3 and two calls equal bit for bit; one
-              round's draws run on the card and on the CPU port: masks
-              and stakes equal, w within rtol 1e-4;
+              times as in phase 3 and two calls equal bit for bit; the
+              same updates with one row's squared norm overflowing and
+              rows of ±inf (C1), held as in phase 3; one round's draws
+              run on the card and on the CPU port: masks and stakes
+              equal, w within rtol 1e-4;
   crypto_kernel
               the on-curve kernel (B2) vs its plain PyTorch version on
               the VSS fold's 64 × 7,850 = 502,400 cells (valid points,
@@ -88,17 +95,33 @@ printed as one JSON line:
               times and bound as in phase 3); a device_trace window over 3
               rounds (device ms a round, idle share, top kernels);
   bench       the eight BASELINE rows through biscotti_tpu_torch.bench
-              (device_round_s and the crypto-inclusive keys each, the share
-              round-trip exact, the device settle on creditcard_10, the
+              (device_round_s, the crypto-inclusive keys and the six wire
+              and cross-host byte columns each, the share round-trip
+              exact, the device settle on creditcard_10, the
               mnist_100_dp_eps1 headline), and one round of each CNN row
               on the card and on the CPU port from flat_init weights;
   trainer     the per-peer Trainer on the card against the CPU port (mnist
               softmax and mnist_cnn), one private_fun's time, and mcmc13
               Trainers at d = 7,850 and 164,266: acceptance rate, mean row
               norm against the law's 2d/ε (within 1 %), presample time;
+  ledger      the ledger and wire plane on the card's own rounds: 5 rounds
+              of the main configuration, each sealed into a Block (global_w
+              on the f32 grid, the card's stakes, one secure-agg Update for
+              each accepted contributor: an empty delta and the SHA-256 of its
+              update as the commitment) and appended with consider_block to
+              a 1,024-node Blockchain; one plain-mode block of 70 accepted
+              mnist_cnn updates (d = 164,266, ~92 MB as float64) on a chain
+              of its own; every block sent through the port's Pool to the
+              port's RPCServer on 127.0.0.1 under raw64 and f32+zlib (4 MiB
+              chunks), the server appending it to a second chain: dumps
+              equal, verify() passes, every decoded hash the sealed one, a
+              checkpoint save/load equal; frame bytes, codec ratios,
+              chunk frames and the encode, send and decode seconds of each
+              block kind (host clock), and the bench's six byte columns for
+              the main configuration;
   6. kernels  one line for every ported kernel (B1's launches from phases
-              4, defenses and cnn, with its times at (716, 164266) beside
-              those at (716, 7850); B2's from the crypto and secagg
+              4, defenses, cnn and ledger, with its times at (716, 164266)
+              beside those at (716, 7850); B2's from the crypto and secagg
               phases' intakes).
 
 Then the card's `name, power.limit` line as nvidia-smi prints it (the line
@@ -155,6 +178,11 @@ REPS = 20
 CHUNKS, POLY = 785, 10  # C chunks of k coefficients: d = 7,850
 WAVE = 35  # num_samples // 2 grids a wave (bench.py:272)
 SHARES = 15  # share points of the Shamir recovery timing
+LEDGER_ROUNDS = 5
+# S of the bench's mnist_cnn rows at N = 100 (bench.py:849-858): the
+# accepted updates a plain-mode mnist_cnn block carries in the ledger phase
+LEDGER_CNN_ROWS = 70
+LEDGER_CODECS = ("raw64", "f32+zlib")
 
 
 def emit(phase: str, **fields) -> None:
@@ -352,9 +380,43 @@ def rel_err(got, ref) -> float:
 
 
 def accept_set(scores, keep: int):
+    from biscotti_tpu_torch.ops.krum import rank_scores
+
+    return set(rank_scores(scores)[:keep].tolist())
+
+
+def nonfinite_case(case: str, x, num_adversaries: int) -> dict:
+    """B1 and the plain version on the card against the plain version on
+    the CPU for the same input x (on the card), the oracle the CPU tests
+    hold to the reference: accept sets equal, the same NaN bits and
+    infinities at the same places, finite scores within RTOL. Launches
+    made here are comparisons, not main-path launches."""
     import torch
 
-    return set(torch.sort(scores, stable=True).indices[:keep].tolist())
+    from biscotti_tpu_torch.ops import krum_cuda
+    from biscotti_tpu_torch.ops.krum import same_nonfinite
+
+    n, f = x.shape[0], num_adversaries
+    oracle = krum_cuda.krum_scores_plain(x.cpu(), f)
+    want = accept_set(oracle, n - f)
+    fin = torch.isfinite(oracle)
+    row = {"case": case, "n": n, "d": x.shape[1],
+           "oracle_nan": int(torch.isnan(oracle).sum()),
+           "oracle_inf": int(torch.isinf(oracle).sum())}
+    for name, fn in (("kernel", krum_cuda.krum_scores_kernel),
+                     ("plain_on_card", krum_cuda.krum_scores_plain)):
+        got = fn(x, f)
+        torch.cuda.synchronize()
+        got = got.cpu()
+        row[name] = {"accept_set_equal": accept_set(got, n - f) == want,
+                     "nonfinite_equal": same_nonfinite(got, oracle),
+                     "finite_max_rel_err": rel_err(got[fin], oracle[fin])}
+    if not all(row[k]["accept_set_equal"] and row[k]["nonfinite_equal"]
+               and row[k]["finite_max_rel_err"] < RTOL
+               for k in ("kernel", "plain_on_card")):
+        raise AssertionError(f"Krum on non-finite rows differs from the CPU "
+                             f"oracle: {row}")
+    return row
 
 
 def host_s(fn, reps: int = 3):
@@ -989,7 +1051,7 @@ def cnn_phase(dev) -> dict:
     # B1 against its plain version on one round's noised updates
     w0 = sim.model.flat_init(torch.Generator(device=dev).manual_seed(3))
     cidx, bidx, noise, _ = sim.draw_round(sim.gen, 7)
-    _, noised = sim.local_updates(w0, cidx, bidx, noise)
+    deltas, noised = sim.local_updates(w0, cidx, bidx, noise)
     got, ref = kern(noised, f), plain(noised, f)
     torch.cuda.synchronize()
     err_rel = rel_err(got, ref)
@@ -1003,7 +1065,13 @@ def cnn_phase(dev) -> dict:
         truth = krum_scores_fp64(noised, f)
         kernel["kernel_vs_fp64_rel_err"] = rel_err(got.double(), truth)
         kernel["plain_vs_fp64_rel_err"] = rel_err(ref.double(), truth)
-    del noised, noise
+    # the ledger phase's plain-mode block: the first LEDGER_CNN_ROWS
+    # accepted contributors of this round, their ids and updates
+    accepted = sorted(accept_set(got, s - f))[:LEDGER_CNN_ROWS]
+    ledger_rows = {"ids": cidx[accepted].tolist(),
+                   "rows": deltas[accepted].double().cpu().numpy(),
+                   "w": w.double().cpu().numpy()}
+    del deltas, noised, noise
 
     # where a round's time goes
     prof_rounds = 3
@@ -1043,7 +1111,8 @@ def cnn_phase(dev) -> dict:
             and kernel["kernel_vs_fp64_rel_err"]
             <= EXACT_SLACK * kernel["plain_vs_fp64_rel_err"]):
         raise AssertionError(f"B1 error at the mnist CNN width: {kernel}")
-    return {"kernel": kernel, "b1_launches": launches}
+    return {"kernel": kernel, "b1_launches": launches,
+            "ledger_rows": ledger_rows}
 
 
 def bench_phase(dev) -> dict:
@@ -1072,6 +1141,13 @@ def bench_phase(dev) -> dict:
                    "miner_crypto_oneshot_s", "recovery_s", "round_total_s",
                    "round_total_pipelined_s")
     for name, row in out["rows"].items():
+        if not (0 < row["wire_bytes_per_round_f32_zlib"]
+                < row["wire_bytes_per_round"]
+                and 0 < row["cross_host_bytes_per_round_overlay"]
+                < row["cross_host_bytes_per_round"]
+                and row["wire_compression_x"] >= 1.0
+                and row["overlay_cross_host_saving_x"] >= 1.0):
+            raise AssertionError(f"bench row {name}'s byte columns: {row}")
         if not (row["device_round_s"] > 0 and 0.0 <= row["final_error"] <= 1.0):
             raise AssertionError(f"bench row {name}: {row}")
         if not (row["share_pipeline_roundtrip_ok"] is True
@@ -1157,6 +1233,225 @@ def trainer_phase(dev) -> dict:
             raise AssertionError(f"mcmc13 presample off its law: {row}")
     emit("trainer", api=api, mcmc13=mcmc, seconds=time.perf_counter() - t_phase)
     return {"api": api, "mcmc13": mcmc}
+
+
+def _chunk_frames(frame: bytes) -> int:
+    """Frames on the wire in one encoded message: 1, or its chunk run."""
+    import struct
+
+    off, n = 0, 0
+    while off < len(frame):
+        (ln,) = struct.unpack(">I", frame[off:off + 4])
+        off, n = off + 4 + ln, n + 1
+    return n
+
+
+def _reassembled(frame: bytes) -> bytes:
+    """The payload of one encoded message, its chunk run reassembled."""
+    import struct
+
+    from biscotti_tpu_torch.runtime import messages as msgs
+
+    if frame[4:8] != msgs.CHUNK_MAGIC:
+        return frame[4:]
+    out, off = [], 0
+    while off < len(frame):
+        (ln,) = struct.unpack(">I", frame[off:off + 4])
+        out.append(frame[off + 4 + msgs.CHUNK_OVERHEAD:off + 4 + ln])
+        off += 4 + ln
+    return b"".join(out)
+
+
+def ledger_phase(dev, sim, w, stake, cnn_rows: dict, first_round: int) -> dict:
+    """The ledger and wire plane on the card's own outputs: LEDGER_ROUNDS
+    rounds of `sim` (the main configuration) sealed into secure-agg blocks
+    on a Blockchain of its nodes, one plain-mode mnist_cnn block of
+    `cnn_rows` on a chain of its own, every block sent through the port's
+    Pool to the port's RPCServer under each of LEDGER_CODECS, a checkpoint
+    round trip, and the bench's byte columns for the configuration.
+    Returns the phase's row (with B1's launches in its rounds)."""
+    import asyncio
+    import hashlib
+    import tempfile
+
+    import torch
+
+    from biscotti_tpu_torch import bench
+    from biscotti_tpu_torch.ledger.block import Block, BlockData, Update
+    from biscotti_tpu_torch.ledger.chain import Blockchain, ChainInvariantError
+    from biscotti_tpu_torch.ops import krum_cuda
+    from biscotti_tpu_torch.runtime import codecs as wcodecs
+    from biscotti_tpu_torch.runtime import messages as msgs
+    from biscotti_tpu_torch.runtime import rpc
+    from biscotti_tpu_torch.runtime import wire
+    from biscotti_tpu_torch.utils import checkpoint
+
+    t_phase = time.perf_counter()
+    cfg = sim.cfg
+    f32 = wcodecs.get("f32+zlib")
+
+    # the card's rounds, each sealed and appended
+    main_chain = Blockchain(sim.num_params, cfg.num_nodes, cfg.default_stake)
+    kern = krum_cuda.krum_scores_kernel
+    kern.launches = 0
+    seal_s, accepted = [], 0
+    for it in range(first_round, first_round + LEDGER_ROUNDS):
+        draws = sim.draw_round(sim.gen, it)
+        deltas, _ = sim.local_updates(w, *draws[:3])
+        w, stake, mask, _ = sim.round_step_from_draws(w, stake, *draws)
+        ids = draws[0][mask].tolist()
+        rows = deltas[mask].cpu().numpy()
+        t0 = time.perf_counter()
+        blk = Block(
+            data=BlockData(iteration=main_chain.next_iteration,
+                           global_w=f32.transform_dense(w.double().cpu().numpy()),
+                           deltas=[Update(source_id=int(c), iteration=it,
+                                          delta=np.zeros(0, np.float64),
+                                          commitment=hashlib.sha256(
+                                              r.tobytes()).digest(),
+                                          accepted=True)
+                                   for c, r in zip(ids, rows)]),
+            prev_hash=main_chain.latest_hash(),
+            stake_map={i: int(v) for i, v in enumerate(stake.tolist())}).seal()
+        if not main_chain.consider_block(blk):
+            raise AssertionError(f"the card's round {it} did not append")
+        seal_s.append(time.perf_counter() - t0)
+        accepted = len(ids)
+    b1_launches = kern.launches
+    w64 = w.double().cpu().numpy()
+
+    # the plain-mode mnist_cnn block, on a chain of its own
+    d_cnn = cnn_rows["rows"].shape[1]
+    cnn_chain = Blockchain(d_cnn, cfg.num_nodes, cfg.default_stake)
+    cnn_blk = Block(
+        data=BlockData(iteration=0, global_w=f32.transform_dense(cnn_rows["w"]),
+                       deltas=[Update(source_id=int(c), iteration=0, delta=r,
+                                      commitment=hashlib.sha256(
+                                          r.tobytes()).digest(), accepted=True)
+                               for c, r in zip(cnn_rows["ids"],
+                                               cnn_rows["rows"])]),
+        prev_hash=cnn_chain.latest_hash(),
+        stake_map=cnn_chain.latest_stake_map()).seal()
+    if not cnn_chain.consider_block(cnn_blk):
+        raise AssertionError("the mnist_cnn block did not append")
+    sources = {"main": main_chain, "mnist_cnn": cnn_chain}
+
+    # encode and decode each block kind once, timed
+    kinds = {}
+    for kind, chain in sources.items():
+        blk = chain.latest
+        row = {"blocks": len(chain) - 1, "deltas": len(blk.data.deltas),
+               "params": int(blk.data.global_w.size)}
+        for codec in LEDGER_CODECS:
+            meta, arrays = wire.pack_block(blk)
+            t0 = time.perf_counter()
+            frame = msgs.encode("RegisterBlock", meta, arrays,
+                                codec=None if codec == wcodecs.RAW else codec,
+                                chunk_bytes=cfg.wire_chunk_bytes)
+            enc_s = time.perf_counter() - t0
+            payload = _reassembled(frame)
+            t0 = time.perf_counter()
+            _, dmeta, darrays = msgs.decode(payload)
+            back = wire.unpack_block(dmeta, darrays)
+            dec_s = time.perf_counter() - t0
+            if back.hash != blk.hash or back.compute_hash() != blk.hash:
+                raise AssertionError(f"{kind} block under {codec} decodes to "
+                                     "another hash")
+            row[codec] = {"frame_bytes": len(frame),
+                          "frames": _chunk_frames(frame),
+                          "encode_s": enc_s, "decode_s": dec_s}
+        row["codec_ratio"] = (row["raw64"]["frame_bytes"]
+                              / row["f32+zlib"]["frame_bytes"])
+        kinds[kind] = row
+
+    # the RPC hop: every block to a port RPCServer, appended on its side
+    received = {(kind, codec): Blockchain(chain.blocks[0].data.global_w.size,
+                                          cfg.num_nodes, cfg.default_stake)
+                for kind, chain in sources.items() for codec in LEDGER_CODECS}
+
+    async def handle(msg_type, meta, arrays):
+        if msg_type != "RegisterBlock":
+            raise rpc.RPCError(f"unexpected {msg_type}")
+        blk = wire.unpack_block(meta, arrays)
+        chain = received[(meta["chain"], meta["codec"])]
+        return {"appended": chain.consider_block(blk),
+                "hash": blk.hash.hex()}, {}
+
+    async def hop():
+        server = rpc.RPCServer("127.0.0.1", 0, handle)
+        server.caps = wcodecs.FULL_CAPS
+        await server.start()
+        port = server._server.sockets[0].getsockname()[1]
+        pool = rpc.Pool()
+        sent = []
+        try:
+            for kind, chain in sources.items():
+                for codec in LEDGER_CODECS:
+                    for blk in chain.blocks[1:]:
+                        meta, arrays = wire.pack_block(blk)
+                        meta.update(chain=kind, codec=codec)
+                        t0 = time.perf_counter()
+                        reply, _ = await pool.call(
+                            "127.0.0.1", port, "RegisterBlock", meta, arrays,
+                            timeout=300.0, codec=codec,
+                            chunk_bytes=cfg.wire_chunk_bytes)
+                        sent.append((kind, codec, time.perf_counter() - t0,
+                                     reply["appended"],
+                                     reply["hash"] == blk.hash.hex()))
+        finally:
+            pool.close()
+            await server.stop()
+        return sent
+
+    sent = asyncio.run(hop())
+    for kind, row in kinds.items():
+        for codec in LEDGER_CODECS:
+            mine = [x for x in sent if x[:2] == (kind, codec)]
+            rx = received[(kind, codec)]
+            row[codec].update(
+                send_s=[x[2] for x in mine],
+                all_appended=all(x[3] for x in mine),
+                hashes_equal=all(x[4] for x in mine),
+                dump_equal=rx.dump() == sources[kind].dump())
+            try:
+                rx.verify()
+                row[codec]["verify"] = True
+            except ChainInvariantError as e:  # reported, then raised below
+                row[codec]["verify"] = str(e)
+
+    # checkpoint save/load round trip
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        ckpt = {}
+        for kind, chain in sources.items():
+            t0 = time.perf_counter()
+            checkpoint.save(chain, os.path.join(ckpt_dir, kind))
+            loaded = checkpoint.load(os.path.join(ckpt_dir, kind))
+            ckpt[kind] = {"dump_equal": loaded.dump() == chain.dump(),
+                          "save_load_s": time.perf_counter() - t0}
+
+    out = {"rounds": LEDGER_ROUNDS, "nodes": cfg.num_nodes,
+           "accepted_last_round": accepted, "seal_s": seal_s,
+           "b1_launches": b1_launches, "blocks": kinds, "checkpoint": ckpt,
+           "bench_byte_columns": bench.byte_columns(cfg, w64, accepted),
+           "chunk_bytes": cfg.wire_chunk_bytes,
+           "nvidia_smi": bench.card_line(),
+           "seconds": time.perf_counter() - t_phase}
+    emit("ledger", **out)
+    if b1_launches != LEDGER_ROUNDS:
+        raise AssertionError(f"ledger rounds launched B1 {b1_launches} times")
+    for kind, row in kinds.items():
+        for codec in LEDGER_CODECS:
+            r = row[codec]
+            if not (r["all_appended"] and r["hashes_equal"] and r["dump_equal"]
+                    and r["verify"] is True):
+                raise AssertionError(f"ledger: the {kind} chain under {codec} "
+                                     f"differs after the RPC hop: {r}")
+        if not ckpt[kind]["dump_equal"]:
+            raise AssertionError(f"ledger: the {kind} checkpoint round trip "
+                                 "differs")
+    if kinds["mnist_cnn"]["raw64"]["frames"] < 2:
+        raise AssertionError("ledger: the mnist_cnn block was not chunked")
+    return out
 
 
 def main() -> int:
@@ -1257,6 +1552,14 @@ def main() -> int:
     x = 0.05 * torch.randn(716, 7850, generator=gen, device=dev) \
         + torch.randn(1, 7850, generator=gen, device=dev)
     compare("cancellation_716x7850", x, check_accept=True, check_exact=True)
+    # ROADMAP C1: non-finite rows at the main path's n
+    for case, (row, value) in {"overflow_2e19": (2, 2e19),
+                               "plus_inf": (2, float("inf")),
+                               "minus_inf": (300, float("-inf")),
+                               "nan_input": (9, float("nan"))}.items():
+        x = torch.randn(716, 7850, generator=gen, device=dev)
+        x[row, 5] = value
+        emit("kernel", **nonfinite_case(case, x, default_num_adversaries(716)))
 
     # 4. main path ------------------------------------------------------
     cfg = BiscottiConfig(dataset="mnist", num_nodes=1024, sample_percent=0.70,
@@ -1333,6 +1636,15 @@ def main() -> int:
         "accept_set_identical": accept_set(got, s - f) == accept_set(ref, s - f),
         "boundary_rel_gap": boundary_rel_gap(ref, s - f),
         **krum_times(noised, f)}
+    c1 = {}
+    for case, cells in (("overflow_2e19", [(2, 5, 2e19)]),
+                        ("plus_and_minus_inf", [(3, 7, float("inf")),
+                                                (9, 1, float("-inf"))])):
+        x = noised.clone()
+        for r, c, v in cells:
+            x[r, c] = v
+        c1[case] = nonfinite_case(case, x, f)
+    main_kernel["nonfinite"] = c1
     gpu = sim.round_step_from_draws(w, stake, *draws)
     cpu_sim = Simulator(cfg, device="cpu")
     cpu = cpu_sim.round_step_from_draws(w.cpu(), stake.cpu(),
@@ -1370,15 +1682,21 @@ def main() -> int:
     trainer_phase(dev)
     cnn_kernel = cnn["kernel"]
 
+    # ledger: slice 5, the card's rounds sealed and sent --------------------
+    ledger = ledger_phase(dev, sim, w, stake, cnn.pop("ledger_rows"),
+                          first_round=7 + prof_rounds)
+
     # 6. kernels ----------------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "krum_scores", "route": "cuda",
         "source": "biscotti_tpu_torch/csrc/krum_scores.cu",
         "replaces": "biscotti_tpu/ops/krum_pallas.py:72",
-        "launches": main_launches + defenses["b1_launches"] + cnn["b1_launches"],
+        "launches": (main_launches + defenses["b1_launches"]
+                     + cnn["b1_launches"] + ledger["b1_launches"]),
         "launches_by_phase": {"main": main_launches,
                               "defenses": defenses["b1_launches"],
-                              "cnn": cnn["b1_launches"]},
+                              "cnn": cnn["b1_launches"],
+                              "ledger": ledger["b1_launches"]},
         "max_abs_err": main_kernel["max_abs_err"],
         "ms": main_kernel["ms"], "plain_ms": main_kernel["plain_ms"],
         "bound_ms": main_kernel["bound_ms"], "bound_by": main_kernel["bound_by"],

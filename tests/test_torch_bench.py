@@ -2,23 +2,43 @@
 on the CPU with two-config lists: one JSON line with the stated keys, the
 crypto half's keys (the device ones where C·k ≤ 2048, from the plane armed
 on the bench's device), an exact share round-trip, the reference's
-headline, and the configs built from the reference bench's keywords."""
+headline, the configs built from the reference bench's keywords, and the
+six byte columns equal to the reference bench's (`bench.py:73-190`,
+`:396-417`) on every BASELINE config for the same vector and count."""
 
+import importlib.util
 import json
+import os
 
+import numpy as np
 import pytest
 
 from biscotti_tpu.config import BiscottiConfig as JConfig
 from biscotti_tpu_torch import bench
+from biscotti_tpu_torch.models.zoo import model_for_dataset
 
 CRYPTO_KEYS = {"worker_crypto_s", "miner_intake", "miner_fold_s",
                "miner_crypto_s", "miner_crypto_oneshot_s", "recovery_s",
                "share_pipeline_roundtrip_ok", "round_total_s",
                "round_total_pipelined_s"}
 DEVICE_KEYS = {"miner_crypto_device_s", "msm_points_per_s"}
+WIRE_KEYS = {"wire_bytes_per_round", "wire_bytes_per_round_f32_zlib",
+             "wire_compression_x", "cross_host_bytes_per_round",
+             "cross_host_bytes_per_round_overlay",
+             "overlay_cross_host_saving_x"}
 ROW_KEYS = {"dataset", "model", "nodes", "params", "defense", "secure_agg",
             "noising", "poison", "timed_rounds", "device_round_s",
-            "accepted_per_round", "final_error"} | CRYPTO_KEYS
+            "accepted_per_round", "final_error"} | CRYPTO_KEYS | WIRE_KEYS
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _reference_bench():
+    """The repo's root `bench.py` (the reference's bench) as a module."""
+    spec = importlib.util.spec_from_file_location(
+        "reference_bench", os.path.join(REPO, "bench.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def test_bench_prints_one_json_line(capsys):
@@ -102,3 +122,35 @@ def test_bench_crypto_half_and_headline():
     assert head["metric"].startswith("crypto-inclusive s/iter")
     assert head["value"] == mn["round_total_pipelined_s"]
     assert head["serial_s_per_iter"] == mn["round_total_s"]
+
+
+@pytest.mark.parametrize("name", [n for n, _ in bench.CONFIGS])
+def test_byte_columns_equal_reference(name):
+    """The six byte columns for one seeded model-width vector (float32
+    values as float64, as the bench takes the final weights off the card)
+    and one accepted count, through both packages' frame encoders."""
+    ref_bench = _reference_bench()
+    cfg = bench.config(name)
+    ref_cfg = JConfig(defense=cfg.defense.value, **dict(bench.CONFIGS)[name],
+                      **bench.BASE)
+    d = model_for_dataset(cfg.dataset, cfg.model_name).num_params
+    w = np.random.default_rng(len(name)).normal(0.0, 0.05, d).astype(
+        np.float32).astype(np.float64)
+    accepted = cfg.num_samples // 2
+    raw = ref_bench.wire_round_bytes(ref_cfg, w, accepted, codec="raw64")
+    f32z = ref_bench.wire_round_bytes(ref_cfg, w, accepted, codec="f32+zlib")
+    flat = ref_bench.cross_host_round_bytes(ref_cfg, w, accepted, hosts=2,
+                                            overlay=False)
+    tree = ref_bench.cross_host_round_bytes(ref_cfg, w, accepted, hosts=2,
+                                            overlay=True)
+    want = {"wire_bytes_per_round": raw,
+            "wire_bytes_per_round_f32_zlib": f32z,
+            "wire_compression_x": round(raw / max(1, f32z), 2),
+            "cross_host_bytes_per_round": flat,
+            "cross_host_bytes_per_round_overlay": tree,
+            "overlay_cross_host_saving_x": round(flat / max(1, tree), 2)}
+    assert bench.byte_columns(cfg, w, accepted) == want
+    assert set(want) == WIRE_KEYS and f32z < raw
+    for codec in ("raw64", "f32+zlib", "topk+f32+zlib"):
+        assert bench._round_frame_bytes(cfg, w, accepted, codec) \
+            == ref_bench._round_frame_bytes(ref_cfg, w, accepted, codec)

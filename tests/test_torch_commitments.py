@@ -10,10 +10,19 @@ every verdict, rejected sid and member set equal.
 
 One case differs between the reference's own two backends, and the port
 follows each: `vss_verify_multi` over a zero-width grid (k = 0) is False
-on the native plane and True on the python path.
+on the native plane and True on the python path. So the `native` case
+requires both native planes loaded. The reference builds its library in
+place (`make -C native`, `native/Makefile`: `-o $@`) in every process
+that loads it; a test worker that loads it while another worker's linker
+is still writing it reads a short file twice and falls back to python
+for good. `_reference_native` loads it again once that build has
+settled.
 """
 
+import fcntl
 import hashlib
+import os
+import time
 
 import numpy as np
 import pytest
@@ -22,6 +31,7 @@ from biscotti_tpu.crypto import _native as rnative
 from biscotti_tpu.crypto import commitments as rcm
 from biscotti_tpu.crypto import ed25519 as red
 from biscotti_tpu.ops import secretshare as rss
+from biscotti_tpu_torch import _build
 from biscotti_tpu_torch.crypto import _native
 from biscotti_tpu_torch.crypto import commitments as cm
 from biscotti_tpu_torch.crypto import ed25519 as ed
@@ -38,12 +48,55 @@ def _python_paths(monkeypatch):
     monkeypatch.setattr(rnative, "available", lambda: False)
 
 
+def _settled(path: str, quiet_s: float = 1.0, timeout_s: float = 180.0) -> None:
+    """Wait until `path`'s size and mtime (or its absence) have held for
+    `quiet_s` seconds: no linker is writing it any more."""
+    deadline = time.monotonic() + timeout_s
+    last, since = object(), time.monotonic()
+    while time.monotonic() < deadline:
+        try:
+            st = os.stat(path)
+            now = (st.st_size, st.st_mtime_ns)
+        except FileNotFoundError:
+            now = None
+        if now != last:
+            last, since = now, time.monotonic()
+        elif time.monotonic() - since >= quiet_s:
+            return
+        time.sleep(0.1)
+
+
+def _reference_native(monkeypatch) -> None:
+    """Require the reference's native plane. Where this process lost a
+    concurrent build of it, reset its load state and load it again once
+    the library on disk has settled, one test worker at a time (three
+    times at most: a build that started before the library existed may
+    still link over it once)."""
+    if not rnative.available():
+        _build.BUILD.mkdir(parents=True, exist_ok=True)
+        with open(_build.BUILD / "reference-native.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            for _ in range(3):
+                _settled(os.path.abspath(rnative._LIB_PATHS[0]))
+                monkeypatch.setattr(rnative, "_lib", None)
+                monkeypatch.setattr(rnative, "_load_attempted", False)
+                monkeypatch.setattr(rnative, "_load_error", "")
+                if rnative.available():
+                    break
+    assert rnative.available(), rnative.load_error()
+
+
+def _native_planes(monkeypatch) -> None:
+    assert _native.available(), _native.load_error()
+    _reference_native(monkeypatch)
+
+
 @pytest.fixture(params=["native", "python"])
 def backend(request, monkeypatch):
     if request.param == "python":
         _python_paths(monkeypatch)
     else:
-        assert _native.available(), _native.load_error()
+        _native_planes(monkeypatch)
     return request.param
 
 
@@ -51,6 +104,8 @@ def backend(request, monkeypatch):
 def mode(request, monkeypatch):
     if request.param == "python":
         _python_paths(monkeypatch)
+    if request.param == "native":
+        _native_planes(monkeypatch)
     if request.param == "armed":
         kernels.set_enabled(True, device="cpu")
     try:
@@ -450,3 +505,20 @@ def test_native_and_python_msm_agree_with_reference_oracle(monkeypatch):
     py = cm.msm(scalars, key.points)
     assert ed.point_equal(nat, py)
     assert py == rcm._msm_python(scalars, key.points)
+
+
+def test_reference_native_reloads_after_a_lost_build(monkeypatch):
+    """A reference plane left as a lost concurrent build leaves it (two
+    reads of a short file, the python fallback for good) is loaded again
+    by `_reference_native`, and the native comparison then holds."""
+    monkeypatch.setattr(rnative, "_lib", None)
+    monkeypatch.setattr(rnative, "_load_attempted", True)
+    monkeypatch.setattr(rnative, "_load_error",
+                        "native/libbiscotti_native.so failed to load (file "
+                        "too short)")
+    assert not rnative.available()
+    _native_planes(monkeypatch)
+    assert rnative.available() and rnative.load_error() == ""
+    cases = _multi_cases()
+    assert rcm.vss_verify_multi(cases["zero_width"]) is False
+    assert cm.vss_verify_multi(cases["zero_width"]) is False

@@ -23,7 +23,8 @@ from biscotti_tpu_torch.crypto.kernels.cells import (edge_cells, grid_bytes,
                                                      random_cells)
 from biscotti_tpu_torch.crypto.kernels import primitives as prim
 from biscotti_tpu_torch.ops import krum_cuda
-from biscotti_tpu_torch.ops.krum import default_num_adversaries, krum_accept_mask
+from biscotti_tpu_torch.ops.krum import (accept_mask, default_num_adversaries,
+                                         krum_accept_mask, same_nonfinite)
 
 pytestmark = pytest.mark.cuda
 
@@ -150,6 +151,31 @@ def test_kernel_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError):
         krum_cuda.krum_scores_kernel(x.t(), 4)
     assert not krum_cuda.krum_scores_kernel(x[:4], 2).any()  # k = 0
+
+
+@pytest.mark.parametrize("case", ["overflow_2e19", "plus_inf", "minus_inf",
+                                  "nan_input"])
+def test_kernel_on_nonfinite_rows_matches_plain_on_the_cpu(dev, case):
+    """ROADMAP C1 at the main path's n = 716: B1 on the card and the plain
+    path on the card against the plain path on the CPU (the oracle the CPU
+    tests hold to the reference): the same accept set, the same NaN bits
+    and infinities, finite scores within RTOL."""
+    x = torch.randn(716, 7850, generator=torch.Generator().manual_seed(6))
+    row, value = {"overflow_2e19": (2, 2e19), "plus_inf": (2, float("inf")),
+                  "minus_inf": (300, float("-inf")),
+                  "nan_input": (9, float("nan"))}[case]
+    x[row, 5] = value
+    f = default_num_adversaries(716)
+    oracle = krum_cuda.krum_scores_plain(x, f)
+    want = accept_mask(oracle, 716 - f)
+    for got in (krum_cuda.krum_scores_kernel(x.to(dev), f),
+                krum_cuda.krum_scores_plain(x.to(dev), f)):
+        got = got.cpu()
+        assert same_nonfinite(got, oracle)
+        fin = torch.isfinite(oracle)
+        assert _rel_err(got[fin], oracle[fin]) < RTOL
+        assert torch.equal(accept_mask(got, 716 - f), want)
+    assert torch.equal(krum_accept_mask(x.to(dev), f).cpu(), want)
 
 
 # ------------------------------------------------ kernel B2, the crypto plane

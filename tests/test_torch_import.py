@@ -41,6 +41,11 @@ def test_port_modules_import_without_jax_or_reference():
         "crypto._native", "crypto.vrf", "crypto.dkg", "ops.secretshare",
         "parallel.roles")}
     assert slice4 <= set(mods), slice4 - set(mods)
+    slice5 = {"biscotti_tpu_torch." + m for m in (
+        "ledger", "ledger.block", "ledger.chain", "utils.checkpoint",
+        "runtime", "runtime.codecs", "runtime.messages", "runtime.wire",
+        "runtime.protocol", "runtime.rpc")}
+    assert slice5 <= set(mods), slice5 - set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

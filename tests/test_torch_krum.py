@@ -26,12 +26,15 @@ from biscotti_tpu.ops.krum_pallas import (
 )
 from biscotti_tpu_torch.ops import krum_cuda
 from biscotti_tpu_torch.ops.krum import (
+    accept_mask,
     collusion_accept_override,
     default_num_adversaries,
     krum_accept_mask,
     krum_scores,
     krum_select,
     pairwise_sq_dists,
+    rank_scores,
+    same_nonfinite,
 )
 
 RTOL = 1e-4
@@ -51,8 +54,11 @@ def _port_scores(x, f):
 def _kernel_order_scores(x: np.ndarray, f: int, sms: int = 132) -> np.ndarray:
     """csrc/krum_scores.cu's arithmetic on the CPU: fp32 partial Grams over
     `plan`'s split of the padded features, summed in split order; D =
-    (sq_i + sq_j) - 2G kept where > 0, the diagonal +inf; the exact k-th
-    smallest by the 31-step bisection on the float bits; the tie rule."""
+    fma(-2G, sq_i + sq_j) kept where > 0, +inf added on the diagonal, each
+    entry as its order key (a generated NaN 0, a propagated NaN after
+    +inf, a number its bits + 1); the exact k-th smallest key by the
+    31-step bisection; the score from the keys' values, or the NaN of its
+    class; the tie rule."""
     t = torch.from_numpy(x)
     n, d = t.shape
     _, d_pad, _, splits = krum_cuda.plan(n, d, sms)
@@ -61,19 +67,30 @@ def _kernel_order_scores(x: np.ndarray, f: int, sms: int = 132) -> np.ndarray:
     g = sum((t[:, a:b] @ t[:, a:b].T for a, b in zip(edges, edges[1:])),
             torch.zeros(n, n))
     sq = (t * t).sum(-1)
-    dist = (sq[:, None] + sq[None, :]) - 2 * g
+    dist = ((sq[:, None] + sq[None, :]).double() - 2 * g.double()).float()
+    nan_in = torch.isnan(sq)
+    far = nan_in[:, None] | nan_in[None, :]
+    near = torch.isnan(dist) & ~far
     dist = torch.where(dist > 0, dist, torch.zeros(()))
-    dist.fill_diagonal_(float("inf"))
+    dist.diagonal().add_(float("inf"))
+    key = dist.view(torch.int32).long() + 1
+    key[near], key[far] = 0, 0x7FC00001
     k = n - f - 2
-    bits = dist.view(torch.int32)
-    ans = torch.zeros(n, dtype=torch.int32)
+    ans = torch.zeros(n, dtype=torch.long)
     for step in range(31):
         cand = ans | (1 << (30 - step))
-        ans = torch.where((bits < cand[:, None]).sum(-1) < k, cand, ans)
-    below = bits < ans[:, None]
-    kth = ans.view(torch.float32)
-    return (torch.where(below, dist, torch.zeros(())).sum(-1)
-            + (k - below.sum(-1)) * kth).numpy()
+        ans = torch.where((key < cand[:, None]).sum(-1) < k, cand, ans)
+    below = (key < ans[:, None]) & (key != 0)
+    vals = (key - 1).int().view(torch.float32)
+    kth = (ans - 1).int().view(torch.float32)
+    score = (torch.where(below, vals, torch.zeros(())).sum(-1)
+             + (k - below.sum(-1)) * kth)
+    score = torch.where(ans == 0x7FC00001, _bits(0x7FC00000), score)
+    return torch.where(near.any(-1), _bits(0xFFC00000), score).numpy()
+
+
+def _bits(u: int) -> torch.Tensor:
+    return torch.tensor([u], dtype=torch.int64).int().view(torch.float32)[0]
 
 
 def _check_against_reference(x):
@@ -190,3 +207,80 @@ def test_pairwise_and_helpers():
     assert not collusion_accept_override(19, 20, 0.0)
     assert collusion_accept_override(19, 20, 0.3)
     assert not collusion_accept_override(14, 20, 0.3)
+
+
+# ----------------------------------------------- non-finite updates (C1)
+# ROADMAP C1: an overflowing squared norm (input 1: default_rng(1),
+# x[2, 5] = 2e19), ±inf (input 2: default_rng(0), x[2, 5] = inf), 3e38,
+# a norm whose 2G alone overflows (1.5e19) and a NaN input, at n = 7, 12
+# and 40. The scores' NaNs must carry the reference's bits (the class that
+# ranks them), the infinities sit where the reference's do, the finite
+# scores agree at RTOL, and the accept sets are identical.
+C1_INPUTS = [(1, 2e19), (0, np.inf), (0, -np.inf), (1, 3e38), (1, 1.5e19),
+             (0, np.nan)]
+
+
+def c1_input(seed: int, value: float, n: int) -> np.ndarray:
+    x = np.random.default_rng(seed).normal(size=(n, 16)).astype(np.float32)
+    x[2, 5] = value
+    return x
+
+
+def assert_scores_match(ref: np.ndarray, got: np.ndarray) -> None:
+    nan = np.isnan(ref)
+    assert np.array_equal(nan, np.isnan(got))
+    assert np.array_equal(ref.view(np.uint32)[nan], got.view(np.uint32)[nan])
+    assert np.array_equal(np.isinf(ref), np.isinf(got))
+    assert np.array_equal(ref[np.isinf(ref)], got[np.isinf(got)])
+    fin = np.isfinite(ref)
+    np.testing.assert_allclose(got[fin], ref[fin], rtol=RTOL)
+
+
+@pytest.mark.parametrize("n", [7, 12, 40])
+@pytest.mark.parametrize("seed,value", C1_INPUTS)
+def test_nonfinite_updates_match_reference(seed, value, n):
+    x = c1_input(seed, value, n)
+    f = default_num_adversaries(n)
+    ref = np.asarray(jkrum_scores(jnp.asarray(x), f))
+    for got in _port_scores(x, f) + [_kernel_order_scores(x, f)]:
+        assert_scores_match(ref, got)
+        assert same_nonfinite(torch.tensor(got), torch.tensor(ref))
+    want = np.asarray(jkrum_accept_mask(jnp.asarray(x), f))
+    assert np.array_equal(krum_accept_mask(torch.from_numpy(x), f).numpy(), want)
+    kernel = accept_mask(torch.from_numpy(_kernel_order_scores(x, f)),
+                                   n - f)
+    assert np.array_equal(kernel.numpy(), want)
+
+
+def test_overflowing_norm_is_accepted_as_the_reference_accepts_it():
+    # input 1 of ROADMAP C1: row 2's self-distance is inf - inf, a NaN
+    # generated with no NaN input, so its score is the NaN 0xffc00000 and
+    # ranks first
+    x = c1_input(1, 2e19, 7)
+    scores = krum_scores(torch.from_numpy(x), 3).numpy()
+    assert scores.view(np.uint32)[2] == 0xFFC00000
+    assert np.isfinite(np.delete(scores, 2)).all()
+    assert np.flatnonzero(krum_accept_mask(torch.from_numpy(x), 3)).tolist() \
+        == [0, 2, 3, 5]
+    # a NaN input propagates: its score is 0x7fc00000 and ranks last
+    x = c1_input(0, np.nan, 7)
+    scores = krum_scores(torch.from_numpy(x), 3).numpy()
+    assert scores.view(np.uint32)[2] == 0x7FC00000
+    assert not krum_accept_mask(torch.from_numpy(x), 3).numpy()[2]
+
+
+def test_rank_scores_orders_nan_classes_around_the_numbers():
+    nan_near, nan_far = float(_bits(0xFFC00000)), float(_bits(0x7FC00000))
+    s = torch.tensor([3.0, nan_far, float("inf"), nan_near, 1.0, nan_near, 0.0,
+                      1.0])
+    assert rank_scores(s).tolist() == [3, 5, 6, 4, 7, 0, 2, 1]
+
+
+def test_same_nonfinite_tells_the_classes_apart():
+    near, far = float(_bits(0xFFC00000)), float(_bits(0x7FC00000))
+    a = torch.tensor([1.0, near, float("inf"), 2.0])
+    assert same_nonfinite(a, a.clone())
+    assert same_nonfinite(torch.tensor([1.5, near, float("inf"), 2.5]), a)
+    for b in ([1.0, far, float("inf"), 2.0], [1.0, near, 3.0, 2.0],
+              [1.0, near, float("-inf"), 2.0], [near, near, float("inf"), 2.0]):
+        assert not same_nonfinite(torch.tensor(b), a)

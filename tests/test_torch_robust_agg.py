@@ -71,6 +71,22 @@ def test_multikrum_exact_ties_go_to_the_lower_index():
             assert np.array_equal(pra.multikrum_accept_mask(px, f, m).numpy(), ref)
 
 
+@pytest.mark.parametrize("n", [7, 12, 40])
+@pytest.mark.parametrize("seed,value", [(1, 2e19), (0, np.inf), (0, -np.inf),
+                                        (1, 3e38), (1, 1.5e19), (0, np.nan)])
+@pytest.mark.parametrize("m", [0, 3])
+def test_multikrum_mask_on_nonfinite_updates(seed, value, n, m):
+    # ROADMAP C1, inputs 1 (2e19) and 2 (inf) and their neighbours: an
+    # overflowing squared norm, ±inf and a NaN input, ranked as the
+    # reference ranks their NaN and inf scores
+    x = np.random.default_rng(seed).normal(size=(n, 16)).astype(np.float32)
+    x[2, 5] = value
+    jx, px = _both(x)
+    f = default_num_adversaries(n)
+    ref = np.asarray(jra.multikrum_accept_mask(jx, f, m))
+    assert np.array_equal(pra.multikrum_accept_mask(px, f, m).numpy(), ref)
+
+
 # ------------------------------------------------ trimmed mean and median
 
 

@@ -11,10 +11,13 @@ disarmed (the numpy matmul) and with the device plane armed on the CPU
 integers.
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from biscotti_tpu.config import BiscottiConfig as JConfig
@@ -53,6 +56,24 @@ def test_quantize_sign_cases_equal_reference(kind):
                                                               0, 0, 0]
     assert np.array_equal(ss.dequantize(got), np.asarray(rss.dequantize(
         jnp.asarray(ref))))
+
+
+@pytest.mark.parametrize("kind", ["np64", "torch64", "torch32"])
+def test_quantize_saturates_outside_int64_as_the_reference(kind):
+    # ROADMAP C3: XLA's convert saturates and maps NaN to 0 (under x64, as
+    # tests/conftest.py runs the reference); numpy's cast gave INT64_MIN
+    # for all six with a RuntimeWarning
+    assert jax.config.jax_enable_x64
+    vals = np.array([np.inf, -np.inf, np.nan, 1e30, -1e30, 9.3e14])
+    ref = np.asarray(rss.quantize(jnp.asarray(vals)))
+    arg = vals if kind == "np64" else torch.from_numpy(vals).to(
+        torch.float32 if kind == "torch32" else torch.float64)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = ss.quantize(arg)
+    i64 = np.iinfo(np.int64)
+    assert got.tolist() == ref.tolist() == [i64.max, i64.min, 0, i64.max,
+                                            i64.min, i64.max]
 
 
 @pytest.mark.parametrize("d,poly,mult", [(23, 10, 1), (64, 5, 1), (7, 10, 4),
