@@ -21,7 +21,11 @@ per-peer `Trainer` (`models/trainer.py`) and the device-round bench
 `crypto/dkg.py`, `parallel/roles.py`). Slice 5 is the ledger and wire
 plane (`ledger/`, `utils/checkpoint.py`, `runtime/`: codecs, frames,
 packers, the protocol table and the RPC layer) and the bench's byte
-columns.
+columns. Slice 6 is the live peer (`runtime/peer.py::PeerAgent`, its
+Trainer and verifier seams on the peer's device) with the JAX-free planes
+under it (faults, admission, stragglers, overlay, placement, membership,
+adversary, `ops/trust.py`, the rest of `telemetry/`, `tools/keygen.py`
+and the full `config.py`).
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`
 (`device.resolve_device`); with no GPU and no explicit CPU choice they raise.

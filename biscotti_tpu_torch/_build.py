@@ -37,9 +37,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 
 def _krum_signatures(lib: ctypes.CDLL) -> None:
-    # (x, sq, out, xp, dist, partials, counters,
+    # (x, sq, out, xp, amax, dist, partials, counters,
     #  n, d, n_pad, d_pad, splits, k, stream) -> cudaError_t
-    lib.krum_scores_f32.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
+    lib.krum_scores_f32.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
     lib.krum_scores_f32.restype = ctypes.c_int
     lib.krum_error_string.argtypes = [ctypes.c_int]

@@ -20,6 +20,13 @@
 // row whose k nearest hold a generated NaN scores 0xffc00000, one whose
 // k-th nearest is a propagated NaN 0x7fc00000, as the plain version does.
 //
+// Subnormals follow the plain version's flush-to-zero rule (ops/krum.py
+// docstring), not the card's IEEE arithmetic: the pre-pass stores inputs
+// with |x| < FLT_MIN as 0 and each row's max |x|; the epilogue takes G_ij
+// as 0 where max|x_i| * max|x_j| < FLT_MIN or G_ij is subnormal, and a
+// subnormal D_ij as 0. sq comes from the caller with its subnormal
+// products flushed.
+//
 // Bound, by pipe. D is symmetric, so the scores need the n(n-1)/2 distinct
 // off-diagonal dot products: n(n-1)*d operations, against 4*(n*d + n) bytes
 // read and written (22.5 MB, 0.0067 ms at n = 716, d = 7850). On the fp32
@@ -43,7 +50,7 @@
 //
 // 1. krum_pad_kernel copies x once into a zero-padded [n_pad, d_pad]
 //    buffer (n_pad a multiple of the 128-row tile, d_pad of the 16-feature
-//    k-tile). A row of x at d = 7850 is 31,400 bytes, not a multiple of 16,
+//    k-tile), subnormal inputs as 0, and each row's max |x| into amax. A row of x at d = 7850 is 31,400 bytes, not a multiple of 16,
 //    so 16-byte loads could not read x in place; zero padding leaves
 //    products and norms exact. It also zeroes the split-K arrival counters.
 // 2. krum_gram_kernel computes the Gram tiles G[I, J] = X_I . X_J^T of the
@@ -101,18 +108,23 @@ constexpr unsigned kKeyPad = 0x7fffffffu;      // column padding: never selected
 constexpr unsigned kScoreNearNaN = 0xffc00000u;
 constexpr unsigned kScoreFarNaN = 0x7fc00000u;
 constexpr int kMaxSmem = 232448;            // opt-in shared memory of one block
+constexpr float kFltMin = 1.17549435e-38f;  // the least normal float32
 static_assert(kLoads * kThreads * 4 == kTile * kK, "whole float4 a thread");
 
 __device__ __forceinline__ unsigned distance(const float* __restrict__ sq,
+                                             const float* __restrict__ amax,
                                              int n, int i, int j, float g) {
   if (j >= n) return kKeyPad;
   const float si = sq[i], sj = sq[j];
   if (isnan(si) || isnan(sj)) return kKeyFarNaN;
+  // flush-to-zero: an entry of subnormal products only, or a subnormal
+  // sum, is 0 (a NaN product of the maxima compares false and keeps g)
+  if (amax[i] * amax[j] < kFltMin || fabsf(g) < kFltMin) g = 0.f;
   // (sq_i + sq_j) - 2g in one rounding, as the plain version forms it;
   // only where 2g overflows does it differ from two roundings
   float v = fmaf(-2.f, g, si + sj);
   if (isnan(v)) return kKeyNearNaN;
-  v = v > 0.f ? v : 0.f;
+  v = v >= kFltMin ? v : 0.f;  // negatives, -0 and subnormals to +0
   if (i == j) v += INFINITY;  // the reference adds +inf to the diagonal
   return __float_as_uint(v) + 1u;
 }
@@ -123,31 +135,55 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// x[n, d] -> xp[n_pad, d_pad], one block a padded row; block 0 also zeroes
-// the split-K counters (null when the Gram is not split)
+// x[n, d] -> xp[n_pad, d_pad] with subnormal inputs as 0, and the row's
+// max |x| into amax[row] (NaN if the row holds one, as torch's amax), one
+// block a padded row; block 0 also zeroes the split-K counters (null when
+// the Gram is not split)
 __global__ void __launch_bounds__(kPadThreads)
 krum_pad_kernel(const float* __restrict__ x, float* __restrict__ xp,
-                int* __restrict__ counters, int n_counters, int n, int d,
-                int d_pad) {
+                float* __restrict__ amax, int* __restrict__ counters,
+                int n_counters, int n, int d, int d_pad) {
+  __shared__ float warp_max[kPadThreads / 32];
   const int row = blockIdx.x;
   if (row == 0 && counters != nullptr)
     for (int t = threadIdx.x; t < n_counters; t += blockDim.x) counters[t] = 0;
   float4* dst = reinterpret_cast<float4*>(xp + (size_t)row * d_pad);
+  float m = 0.f;
+  bool nan = false;
   for (int q = threadIdx.x; q < d_pad / 4; q += blockDim.x) {
     float v[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int c = 4 * q + e;
-      v[e] = (row < n && c < d) ? x[(size_t)row * d + c] : 0.f;
+      const float a = (row < n && c < d) ? x[(size_t)row * d + c] : 0.f;
+      v[e] = fabsf(a) < kFltMin ? 0.f : a;  // DAZ; NaN compares false
+      nan |= isnan(v[e]);
+      m = fmaxf(m, fabsf(v[e]));  // fmaxf drops a NaN: counted apart
     }
     dst[q] = make_float4(v[0], v[1], v[2], v[3]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  nan = __any_sync(0xffffffffu, nan);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) warp_max[warp] = nan ? NAN : m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float r = 0.f;
+    bool any_nan = false;
+    for (int w = 0; w < kPadThreads / 32; ++w) {
+      any_nan |= isnan(warp_max[w]);
+      r = fmaxf(r, warp_max[w]);
+    }
+    amax[row] = any_nan ? NAN : r;
   }
 }
 
 // one upper Gram tile (I <= J), one split of d; grid (tiles, splits)
 __global__ void __launch_bounds__(kThreads, 2)
 krum_gram_kernel(const float* __restrict__ xp, const float* __restrict__ sq,
-                 unsigned* __restrict__ dist, float* __restrict__ partials,
+                 const float* __restrict__ amax, unsigned* __restrict__ dist, float* __restrict__ partials,
                  int* __restrict__ counters, int n, int n_pad, int d_pad,
                  int splits) {
   // two buffers of two operands, each [kK][kPitch], feature-major
@@ -281,10 +317,10 @@ krum_gram_kernel(const float* __restrict__ xp, const float* __restrict__ sq,
     for (int h = 0; h < 2; ++h) {
       const int j = j0 + ct(4 * h);
       *reinterpret_cast<uint4*>(dist + (size_t)i * n_pad + j) = make_uint4(
-          distance(sq, n, i, j, acc[u][4 * h]),
-          distance(sq, n, i, j + 1, acc[u][4 * h + 1]),
-          distance(sq, n, i, j + 2, acc[u][4 * h + 2]),
-          distance(sq, n, i, j + 3, acc[u][4 * h + 3]));
+          distance(sq, amax, n, i, j, acc[u][4 * h]),
+          distance(sq, amax, n, i, j + 1, acc[u][4 * h + 1]),
+          distance(sq, amax, n, i, j + 2, acc[u][4 * h + 2]),
+          distance(sq, amax, n, i, j + 3, acc[u][4 * h + 3]));
     }
   }
   if (diag) return;
@@ -296,10 +332,10 @@ krum_gram_kernel(const float* __restrict__ xp, const float* __restrict__ sq,
     for (int h = 0; h < 2; ++h) {
       const int j = i0 + rt(4 * h);
       *reinterpret_cast<uint4*>(dist + (size_t)i * n_pad + j) = make_uint4(
-          distance(sq, n, i, j, acc[4 * h][v]),
-          distance(sq, n, i, j + 1, acc[4 * h + 1][v]),
-          distance(sq, n, i, j + 2, acc[4 * h + 2][v]),
-          distance(sq, n, i, j + 3, acc[4 * h + 3][v]));
+          distance(sq, amax, n, i, j, acc[4 * h][v]),
+          distance(sq, amax, n, i, j + 1, acc[4 * h + 1][v]),
+          distance(sq, amax, n, i, j + 2, acc[4 * h + 2][v]),
+          distance(sq, amax, n, i, j + 3, acc[4 * h + 3][v]));
     }
   }
 }
@@ -370,9 +406,10 @@ krum_select_kernel(const unsigned* __restrict__ dist, float* __restrict__ out,
 
 extern "C" {
 
-// Krum scores of x[n, d] into out[n]; sq[n] holds the rows' squared norms.
-// Scratch, allocated by the caller: xp [n_pad, d_pad]; dist [n, n_pad] (4
-// bytes an entry, the order keys of D); with
+// Krum scores of x[n, d] into out[n]; sq[n] holds the rows' squared norms
+// (subnormal products flushed). Scratch, allocated by the caller: xp
+// [n_pad, d_pad]; amax [n_pad]; dist [n, n_pad] (4 bytes an entry, the
+// order keys of D); with
 // splits > 1, partials [tiles * splits * 128 * 128] and counters [tiles],
 // tiles = T (T + 1) / 2 for T = n_pad / 128 (both may be null when
 // splits == 1). n_pad is a multiple of 128, d_pad of 16, 1 <= splits <=
@@ -380,7 +417,7 @@ extern "C" {
 // synchronise, allocates nothing. Returns the cudaError_t of the launches
 // (0 on success).
 int krum_scores_f32(const float* x, const float* sq, float* out, float* xp,
-                    float* dist, float* partials, int* counters, int n, int d,
+                    float* amax, float* dist, float* partials, int* counters, int n, int d,
                     int n_pad, int d_pad, int splits, int k, void* stream) {
   if (n <= 0 || d <= 0 || k <= 0 || k >= n || n_pad < n || n_pad % kTile ||
       d_pad < d || d_pad % kK || splits < 1 || splits > d_pad / kK)
@@ -394,12 +431,12 @@ int krum_scores_f32(const float* x, const float* sq, float* out, float* xp,
   const int tiles = T * (T + 1) / 2;
 
   krum_pad_kernel<<<n_pad, kPadThreads, 0, s>>>(
-      x, xp, splits > 1 ? counters : nullptr, tiles, n, d, d_pad);
+      x, xp, amax, splits > 1 ? counters : nullptr, tiles, n, d, d_pad);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   unsigned* keys = reinterpret_cast<unsigned*>(dist);
   krum_gram_kernel<<<dim3(tiles, splits), kThreads, 0, s>>>(
-      xp, sq, keys, partials, counters, n, n_pad, d_pad, splits);
+      xp, sq, amax, keys, partials, counters, n, n_pad, d_pad, splits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(krum_select_kernel,

@@ -39,6 +39,29 @@ float("nan")); entries within a factor of n·d of FLT_MAX can overflow
 in one Gram summation order and not in another, which no rule fixes.
 `rank_scores` is the accept order, shared by Krum, Multi-Krum and every
 backend of the scores (the plain path here and kernel B1).
+
+Subnormals. The reference runs with flush-to-zero and denormals-are-zero
+on both of its platforms (XLA's CPU flushes, the TPU has no subnormals):
+a subnormal input reads as 0, every subnormal product and every
+subnormal sum is 0. So on x = default_rng(0).normal((6, 8)) * 1e-20
+(ROADMAP C2, f = 3) every distance is 0 and it accepts [0, 1, 2], where
+IEEE arithmetic gives distances of ~1e-39 and accepts [0, 4, 5]. The
+port does not rely on the thread-local FTZ/DAZ state
+(`torch.set_flush_denormal` covers only the calling thread, not torch's
+intra-op pool); it applies the rule to its own operands:
+  * an input with |x| < FLT_MIN is 0 (DAZ);
+  * sq_i sums its products x_ik² with each subnormal product as 0;
+  * a Gram entry G_ij is 0 when max|x_i| · max|x_j| < FLT_MIN (every
+    product of the entry is then subnormal, so the reference sums
+    zeros), and a subnormal G_ij is 0;
+  * a subnormal distance is 0.
+Kernel B1 applies the same rule in its pre-pass (DAZ, row maxima) and its
+epilogue. Not covered: a Gram entry whose products are partly normal
+and partly subnormal (the reference drops each subnormal product, the
+port's matmul keeps them), one whose products are all subnormal although
+max|x_i| · max|x_j| is normal (the maxima sit in different columns), and
+a partial sum that cancels into the subnormal range halfway through the
+reference's summation; each changes a distance only near FLT_MIN.
 """
 
 from __future__ import annotations
@@ -46,6 +69,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 
 # the two NaN scores (see the module docstring), as int32 bit patterns
@@ -60,15 +84,44 @@ def _nan_score(bits: int, like: torch.Tensor) -> torch.Tensor:
                       device=like.device).view(torch.float32)
 
 
+FLT_MIN = torch.finfo(torch.float32).tiny  # the least normal float32
+# the largest subnormal float32: `threshold(t, _SUB_MAX, 0)` keeps t >=
+# FLT_MIN (and NaN), and writes +0 for the rest, in one pass
+_SUB_MAX = 1.1754942106924411e-38
+
+
+def _flush(t: torch.Tensor) -> torch.Tensor:
+    """Subnormals (and -0) to +0, as flush-to-zero stores them; NaN and
+    ±inf stay."""
+    return torch.where(t.abs() < FLT_MIN, 0.0, t)
+
+
+def square_norms(x: torch.Tensor) -> torch.Tensor:
+    """sq_i = Σ_k x_ik² with each subnormal product as 0 (the module
+    docstring's rule; a subnormal input's square is one, so x needs no
+    flush first). Kernel B1's wrapper takes its sq from here, so both
+    backends cancel alike."""
+    return F.threshold_(x * x, _SUB_MAX, 0.0).sum(dim=-1)
+
+
 def _distances(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(D without its diagonal term, sq): D[i,j] = (sq_i + sq_j) − 2G_ij
     taken in float64 and rounded once to float32, as XLA's fma rounds it,
-    clamped at 0 against cancellation; a NaN stays NaN."""
+    clamped at 0 against cancellation, under the reference's flush-to-zero
+    (module docstring); a NaN stays NaN."""
     x = x.to(torch.float32)
-    sq = (x * x).sum(dim=-1)
+    # one |x| buffer serves the flush, the row maxima and the squares: a
+    # flushed row's max is the raw one, or 0 where the whole row is
+    # subnormal; |x|·|x| is x·x, so sq is square_norms(x) bit for bit
+    a = x.abs()
+    amax = _flush(a.amax(dim=-1))
+    x = x.masked_fill(a < FLT_MIN, 0.0)  # NaN compares false and stays
+    sq = F.threshold_(a.mul_(a), _SUB_MAX, 0.0).sum(dim=-1)
     g = x @ x.T
+    g = torch.where(amax[:, None] * amax[None, :] < FLT_MIN, 0.0, _flush(g))
     d = ((sq[:, None] + sq[None, :]).double() - 2.0 * g.double()).float()
-    return torch.clamp(d, min=0.0), sq
+    # negatives, -0 and subnormals to +0, NaN kept
+    return F.threshold_(d, _SUB_MAX, 0.0), sq
 
 
 def pairwise_sq_dists(x: torch.Tensor) -> torch.Tensor:

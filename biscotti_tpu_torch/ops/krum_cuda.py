@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from biscotti_tpu_torch import _build
-from biscotti_tpu_torch.ops.krum import krum_scores
+from biscotti_tpu_torch.ops.krum import krum_scores, square_norms
 
 # The window is the TPU's (biscotti_tpu/ops/krum_pallas.py PALLAS_MIN_N,
 # PALLAS_MAX_N), kept so that the port's accept sets switch backend at the
@@ -58,14 +58,17 @@ def plan(n: int, d: int, sms: int) -> tuple[int, int, int, int]:
 
 def workspace(n: int, d: int, device: torch.device) -> dict:
     """The kernel's scratch at x[n, d], allocated on `device`, with its
-    plan: xp [n_pad, d_pad]; dist [n, n_pad] (4 bytes an entry, which the
-    kernel fills with the order keys of D); partials and counters of the
-    split-K (empty when d is not split)."""
+    plan: xp [n_pad, d_pad]; amax [n_pad], the rows' max |x| after the
+    flush of subnormal inputs (ops/krum.py's subnormal rule); dist
+    [n, n_pad] (4 bytes an entry, which the kernel fills with the order
+    keys of D); partials and counters of the split-K (empty when d is not
+    split)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     n_pad, d_pad, tiles, splits = plan(n, d, sms)
     f32 = {"dtype": torch.float32, "device": device}
     return {"n_pad": n_pad, "d_pad": d_pad, "splits": splits,
             "xp": torch.empty(n_pad, d_pad, **f32),
+            "amax": torch.empty(n_pad, **f32),
             "dist": torch.empty(n, n_pad, **f32),
             "partials": torch.empty(tiles * splits * TILE * TILE
                                     if splits > 1 else 0, **f32),
@@ -80,7 +83,7 @@ def launch(lib, x: torch.Tensor, sq: torch.Tensor, out: torch.Tensor,
     n, d = x.shape
     return lib.krum_scores_f32(
         x.data_ptr(), sq.data_ptr(), out.data_ptr(), ws["xp"].data_ptr(),
-        ws["dist"].data_ptr(), ws["partials"].data_ptr(),
+        ws["amax"].data_ptr(), ws["dist"].data_ptr(), ws["partials"].data_ptr(),
         ws["counters"].data_ptr(), n, d, ws["n_pad"], ws["d_pad"],
         ws["splits"], k, torch.cuda.current_stream().cuda_stream)
 
@@ -104,9 +107,10 @@ def krum_scores_kernel(x: torch.Tensor, num_adversaries: int) -> torch.Tensor:
                          f">= n={n}")
     lib = _build.load("krum_scores")
     with torch.cuda.device(x.device):
-        # the plain version's own sums of squares, bit for bit: the
-        # cancellation in sq_i + sq_j - 2G then cancels alike
-        sq = (x * x).sum(dim=-1)
+        # the plain version's own sums of squares (subnormal products
+        # flushed), bit for bit: the cancellation in sq_i + sq_j - 2G then
+        # cancels alike
+        sq = square_norms(x)
         out = torch.empty(n, dtype=torch.float32, device=x.device)
         rc = launch(lib, x, sq, out, workspace(n, d, x.device), k)
     if rc != 0:

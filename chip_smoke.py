@@ -23,7 +23,10 @@ printed as one JSON line:
               overflows, +inf, −inf, a NaN input), B1 and the plain
               version on the card against the plain version on the CPU:
               accept sets equal, NaN bits and infinities equal, finite
-              scores within rtol 1e-4; at every shape two
+              scores within rtol 1e-4; ROADMAP C2's x1e-20 rows at
+              (716, 7850) (every product subnormal: B1 = plain = the
+              reference's accept set, the n − f lowest ids, all scores
+              0); at every shape two
               calls and a direct launch equal bit for bit; the wrapper's,
               the kernel's alone (the C interface on scratch allocated
               once), the plain version's and the fp32 cuBLAS Gram x @ x.T's
@@ -38,7 +41,9 @@ printed as one JSON line:
               below half the Krum score gap at the accept boundary, its
               times as in phase 3 and two calls equal bit for bit; the
               same updates with one row's squared norm overflowing and
-              rows of ±inf (C1), held as in phase 3; one round's draws
+              rows of ±inf (C1), held as in phase 3, and scaled to a
+              largest |x| of 1e-20 (C2, the reference's accept set);
+              one round's draws
               run on the card and on the CPU port: masks and stakes
               equal, w within rtol 1e-4;
   crypto_kernel
@@ -119,10 +124,29 @@ printed as one JSON line:
               chunk frames and the encode, send and decode seconds of each
               block kind (host clock), and the bench's six byte columns for
               the main configuration;
+  live        in-process clusters of port PeerAgents on the card over
+              loopback TCP (1 verifier, 1 miner, 1 noiser each round; the
+              verifier's pool holds every other peer's update): (a) 7
+              peers, mnist softmax (d = 7,850), KRUM + noising + secure
+              aggregation on the native host crypto, 3 rounds; (b) 4
+              peers, the same with device_crypto armed on the card, batch
+              intake and BISCOTTI_PALLAS_CRYPTO=1 (B2 once a miner's
+              fold), 1 round, and its witness: the same 4-peer round on
+              the native plane, whose chain (b)'s must equal hash for
+              hash; (c) 7 peers, mnist_cnn (d = 164,266) in plain mode
+              with KRUM verification, 2 rounds. Each: chains equal,
+              rounds reached, non-empty blocks, each round's wall time,
+              the peers' phase totals, every peer's Trainer on the card,
+              the verifiers' pools and accept counts ((a) and (c): a pool
+              of 5, so Krum scores on 1 neighbour and rejects 2 in a
+              live block); (b) B2's launches. Then the verifier seam: an
+              unstarted card peer and a CPU peer give the same KRUM,
+              MULTIKRUM, FOOLSGOLD, RONI and ENSEMBLE masks on seeded
+              12-row pools at d = 7,850 and on C2's x1e-20 rows;
   6. kernels  one line for every ported kernel (B1's launches from phases
               4, defenses, cnn and ledger, with its times at (716, 164266)
               beside those at (716, 7850); B2's from the crypto and secagg
-              phases' intakes).
+              phases' intakes and the live miners' folds).
 
 Then the card's `name, power.limit` line as nvidia-smi prints it (the line
 the run's records are keyed by) and, last, the device JSON. Any
@@ -183,6 +207,11 @@ LEDGER_ROUNDS = 5
 # accepted updates a plain-mode mnist_cnn block carries in the ledger phase
 LEDGER_CNN_ROWS = 70
 LEDGER_CODECS = ("raw64", "f32+zlib")
+# peers of clusters (a) and (c): a verifier's pool of 5, Krum's least pool
+# that scores on a neighbour (k = n - f - 2 = 1); (b) and its witness take 4
+LIVE_PEERS = 7
+LIVE_ARMED_PEERS = 4
+LIVE_BASE_PORT = 17500
 
 
 def emit(phase: str, **fields) -> None:
@@ -1454,6 +1483,188 @@ def ledger_phase(dev, sim, w, stake, cnn_rows: dict, first_round: int) -> dict:
     return out
 
 
+def live_cluster(name: str, port: int, timeouts: dict, peers: int,
+                 **kw) -> dict:
+    """`peers` port PeerAgents on the card (device None: the GPU) in one
+    event loop over loopback TCP, run to the end; the cluster's row, with
+    the chain-equality oracle checked. Round wall times are the gaps
+    between peer 0's per-round log stamps, the first from the run's
+    start. `verdicts` lists each verifier decision as [round, pool,
+    accepted]; under KRUM with a pool of 5 or more, Krum must have
+    rejected an update in some round (a pool under 5 scores on no
+    neighbour, and one of 2 or less is accepted whole)."""
+    import asyncio
+
+    from biscotti_tpu_torch.config import BiscottiConfig, Defense, Timeouts
+
+    base = dict(num_nodes=peers, base_port=port, num_verifiers=1,
+                num_miners=1, num_noisers=1, sample_percent=1.0,
+                convergence_error=0.0, seed=0, defense=Defense.KRUM,
+                timeouts=Timeouts(**timeouts))
+    base.update(kw)
+    cfgs = [BiscottiConfig(node_id=i, **base) for i in range(peers)]
+
+    async def go():
+        from biscotti_tpu_torch.runtime.peer import PeerAgent
+
+        agents = [PeerAgent(c) for c in cfgs]
+        t0 = time.time()
+        results = await asyncio.gather(*(a.run() for a in agents))
+        return agents, t0, time.time() - t0, results
+
+    t_setup = time.perf_counter()
+    agents, t0, run_s, results = asyncio.run(go())
+    dumps = [r["chain_dump"] for r in results]
+    blocks = dumps[0].splitlines()[1:]
+    stamps = [float(line.split(",")[2]) for line in results[0]["logs"]]
+    phases: dict = {}
+    for r in results:
+        for ph, v in r["phases"].items():
+            phases[ph] = phases.get(ph, 0.0) + v["total_s"]
+    verdicts = sorted([v["it"], len(v["src"]), sum(v["accept"])]
+                      for r in results
+                      for v in r["telemetry"].get("trust", {}).get("stream", []))
+    row = {"cluster": name, "peers": peers, "dataset": cfgs[0].dataset,
+           "model": cfgs[0].model_name or "default",
+           "params": agents[0].trainer.num_params,
+           "devices": sorted({str(a.trainer.x_test.device) for a in agents}),
+           "secure_agg": cfgs[0].secure_agg,
+           "device_crypto": cfgs[0].device_crypto,
+           "chains_equal": all(d == dumps[0] for d in dumps),
+           "rounds": len(blocks), "rounds_wanted": cfgs[0].max_iterations,
+           "nonempty_blocks": sum("ndeltas=0" not in b for b in blocks),
+           "verdicts": verdicts,
+           "round_wall_s": [b - a for a, b in zip([t0] + stamps, stamps)],
+           "run_s": run_s, "setup_and_run_s": time.perf_counter() - t_setup,
+           "final_error": results[0]["final_error"],
+           "phases_total_s": {k: round(v, 4) for k, v in sorted(phases.items())},
+           "chain": blocks}
+    if not (row["chains_equal"] and row["rounds"] == row["rounds_wanted"]
+            and row["nonempty_blocks"] >= 1
+            and row["devices"] == ["cuda:0"]):
+        raise AssertionError(f"live cluster {name} failed the oracle: {row}")
+    krum_pools = cfgs[0].verification and cfgs[0].defense == Defense.KRUM \
+        and peers - 2 >= 5
+    if krum_pools and not any(pool >= 5 and acc < pool
+                              for _, pool, acc in verdicts):
+        raise AssertionError(f"live cluster {name}: no live round ran Krum "
+                             f"on a pool of 5 or more: {verdicts}")
+    return row
+
+
+def live_seam() -> dict:
+    """The verifier seam on the card: an unstarted card PeerAgent and an
+    unstarted CPU one (the CPU tests' oracle) give the same accept masks
+    for every device defense on a seeded pool at d = 7,850, and the same
+    Krum, Multi-Krum and ENSEMBLE masks on C2's x1e-20 rows."""
+    from biscotti_tpu_torch.config import BiscottiConfig, Defense
+    from biscotti_tpu_torch.runtime.peer import PeerAgent
+
+    cfg = BiscottiConfig(node_id=0, num_nodes=4, dataset="mnist",
+                         base_port=LIVE_BASE_PORT + 90, defense=Defense.ENSEMBLE)
+    card, cpu = PeerAgent(cfg), PeerAgent(cfg, device="cpu")
+    d = card.trainer.num_params
+    rng = np.random.default_rng(17)
+    pools = {"random_12": rng.normal(0.0, 0.01, (12, d)),
+             "c2_1e-20": np.random.default_rng(0).normal(size=(6, d)) * 1e-20}
+    # C2's rows only under the Krum rules: at w = 0 RONI and FoolsGold
+    # read 1e-20-sized logits and cosines, whose ties no rule fixes
+    defenses = {"random_12": (Defense.KRUM, Defense.MULTIKRUM,
+                              Defense.FOOLSGOLD, Defense.RONI),
+                "c2_1e-20": (Defense.KRUM, Defense.MULTIKRUM)}
+    rows = {}
+    for pname, vecs in pools.items():
+        for defense in defenses[pname]:
+            masks = []
+            for agent in (card, cpu):
+                agent.cfg = agent.cfg.replace(defense=defense)
+                masks.append(agent._defense_mask(vecs).tolist())
+            rows[f"{pname}/{defense.value}"] = masks[0]
+            if masks[0] != masks[1]:
+                raise AssertionError(f"live seam: {defense.value} on {pname} "
+                                     f"differs card vs CPU: {masks}")
+        ens = [agent._ensemble_mask(0, [type("U", (), {"source_id": i})()
+                                        for i in range(len(vecs))], vecs)[0]
+               for agent in (card, cpu)]
+        rows[f"{pname}/ENSEMBLE"] = [bool(b) for b in ens[0]]
+        if [bool(b) for b in ens[0]] != [bool(b) for b in ens[1]]:
+            raise AssertionError(f"live seam: ENSEMBLE on {pname} differs "
+                                 f"card vs CPU")
+    keep = 6 - 3
+    if rows["c2_1e-20/KRUM"] != [True] * keep + [False] * (6 - keep):
+        raise AssertionError(f"live seam: C2's pool is not the reference's "
+                             f"accept set: {rows['c2_1e-20/KRUM']}")
+    return {"params": d, "masks": rows}
+
+
+def live_phase() -> dict:
+    """The live peer on the card: clusters (a), (b) with its witness and
+    (c) of the module docstring and the verifier seam; returns the phase's row with B2's
+    launches in (b)."""
+    import torch
+
+    from biscotti_tpu_torch.crypto import kernels
+    from biscotti_tpu_torch.crypto.kernels import cuda_validate as cv
+
+    t_phase = time.perf_counter()
+    fast = dict(update_s=20.0, block_s=60.0, krum_s=20.0, share_s=20.0,
+                rpc_s=20.0)
+    secagg = dict(dataset="mnist", secure_agg=True, noising=True,
+                  verification=True, epsilon=1.0)
+    a = live_cluster("a_secagg_native", LIVE_BASE_PORT, fast, LIVE_PEERS,
+                     max_iterations=3, **secagg)
+    emit("live", **a)
+    # (b)'s witness: its round on the native host plane. Every peer of
+    # both draws from seed 0, and the plane decides only which commitments
+    # and grids pass, so the chains must agree hash for hash; a plane that
+    # refused a valid grid, or passed everything, would part them
+    w = live_cluster("b_witness_native", LIVE_BASE_PORT + 30, fast,
+                     LIVE_ARMED_PEERS, max_iterations=1, batch_intake=True,
+                     **secagg)
+    emit("live", **w)
+    # (b): the armed plane settles a 7,850-point intake in ~4-5 s on the
+    # card (PERF.md §5), and each peer's prewarm runs the ladders once
+    # more, so its deadlines are several of those
+    armed = dict(update_s=40.0, block_s=120.0, krum_s=40.0, share_s=40.0,
+                 rpc_s=40.0)
+    os.environ["BISCOTTI_PALLAS_CRYPTO"] = "1"
+    kernels.reset_counters()
+    cv.oncurve_mask.launches = 0
+    try:
+        b = live_cluster("b_secagg_device_crypto", LIVE_BASE_PORT + 10, armed,
+                         LIVE_ARMED_PEERS, max_iterations=1,
+                         device_crypto=True, batch_intake=True, **secagg)
+        b["b2_launches"] = cv.oncurve_mask.launches
+        b["device_crypto_calls"] = kernels.device_calls()
+        b["device_crypto_seconds"] = kernels.device_seconds()
+        b["armed_device"] = kernels.armed_device().type
+    finally:
+        kernels.set_enabled(False)
+        os.environ.pop("BISCOTTI_PALLAS_CRYPTO")
+    # every grid_validate_sum call of a miner's fold launches B2 once
+    # (prewarm's launches are on top: it runs under the same switch)
+    b["b2_fold_launches"] = b["device_crypto_calls"].get("grid_validate", 0)
+    b["chain_equals_witness"] = b["chain"] == w["chain"]
+    emit("live", **b)
+    if not (b["b2_fold_launches"] >= 1
+            and b["b2_launches"] >= b["b2_fold_launches"]
+            and b["armed_device"] == "cuda"):
+        raise AssertionError(f"live cluster (b) did not run B2 in its "
+                             f"miners' folds on the card: {b}")
+    if not b["chain_equals_witness"]:
+        raise AssertionError(f"live cluster (b)'s chain is not its native "
+                             f"witness's: {b['chain']} vs {w['chain']}")
+    c = live_cluster("c_cnn_plain", LIVE_BASE_PORT + 20, fast, LIVE_PEERS,
+                     max_iterations=2, dataset="mnist", model_name="mnist_cnn",
+                     secure_agg=False, noising=False, verification=True)
+    emit("live", **c)
+    seam = live_seam()
+    emit("live", cluster="verifier_seam", **seam)
+    torch.cuda.synchronize()
+    return {"b2_launches": b["b2_launches"],
+            "seconds": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     import torch
 
@@ -1560,6 +1771,19 @@ def main() -> int:
         x = torch.randn(716, 7850, generator=gen, device=dev)
         x[row, 5] = value
         emit("kernel", **nonfinite_case(case, x, default_num_adversaries(716)))
+    # ROADMAP C2: x1e-20 rows, every product subnormal. The reference
+    # flushes subnormals, so its distances are all 0 and it accepts the
+    # n - f lowest indices; B1, the plain path on the card and on the CPU
+    # must all give exactly that
+    x = 1e-20 * torch.randn(716, 7850, generator=gen, device=dev)
+    sub = nonfinite_case("subnormal_1e-20", x, default_num_adversaries(716))
+    keep = 716 - default_num_adversaries(716)
+    sub["accept_set_is_reference"] = accept_set(
+        kern(x, default_num_adversaries(716)), keep) == set(range(keep))
+    emit("kernel", **sub)
+    if not sub["accept_set_is_reference"]:
+        raise AssertionError(f"B1 on x1e-20 rows is not the reference's "
+                             f"accept set: {sub}")
 
     # 4. main path ------------------------------------------------------
     cfg = BiscottiConfig(dataset="mnist", num_nodes=1024, sample_percent=0.70,
@@ -1645,6 +1869,17 @@ def main() -> int:
             x[r, c] = v
         c1[case] = nonfinite_case(case, x, f)
     main_kernel["nonfinite"] = c1
+    # ROADMAP C2 on main-path inputs: the round's updates scaled to a
+    # largest |x| of 1e-20, so every product is subnormal (B1 = plain = the
+    # reference's accept set, the s - f lowest ids)
+    tiny = noised * (1e-20 / float(noised.abs().max()))
+    c2 = nonfinite_case("subnormal_1e-20", tiny, f)
+    c2["accept_set_is_reference"] = accept_set(kern(tiny, f), s - f) \
+        == set(range(s - f))
+    main_kernel["subnormal"] = c2
+    if not c2["accept_set_is_reference"]:
+        raise AssertionError(f"B1 on main-path updates x1e-20 is not the "
+                             f"reference's accept set: {c2}")
     gpu = sim.round_step_from_draws(w, stake, *draws)
     cpu_sim = Simulator(cfg, device="cpu")
     cpu = cpu_sim.round_step_from_draws(w.cpu(), stake.cpu(),
@@ -1686,6 +1921,9 @@ def main() -> int:
     ledger = ledger_phase(dev, sim, w, stake, cnn.pop("ledger_rows"),
                           first_round=7 + prof_rounds)
 
+    # live: slice 6, clusters of port peers on the card --------------------
+    live = live_phase()
+
     # 6. kernels ----------------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "krum_scores", "route": "cuda",
@@ -1709,9 +1947,11 @@ def main() -> int:
         "name": "oncurve_validate", "route": "cuda",
         "source": "biscotti_tpu_torch/csrc/oncurve.cu",
         "replaces": "biscotti_tpu/crypto/kernels/pallas_validate.py:34",
-        "launches": crypto["oncurve_launches"] + secagg["b2_launches"],
+        "launches": (crypto["oncurve_launches"] + secagg["b2_launches"]
+                     + live["b2_launches"]),
         "launches_by_phase": {"crypto": crypto["oncurve_launches"],
-                              "secagg": secagg["b2_launches"]},
+                              "secagg": secagg["b2_launches"],
+                              "live": live["b2_launches"]},
         "max_abs_err": b2["max_abs_err"],
         "ms": b2["ms"], "plain_ms": b2["plain_ms"],
         "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],

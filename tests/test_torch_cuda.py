@@ -178,6 +178,32 @@ def test_kernel_on_nonfinite_rows_matches_plain_on_the_cpu(dev, case):
     assert torch.equal(krum_accept_mask(x.to(dev), f).cpu(), want)
 
 
+@pytest.mark.parametrize("case", ["all_subnormal_products", "mixed_scales"])
+def test_kernel_on_subnormal_rows_matches_plain_on_the_cpu(dev, case):
+    """ROADMAP C2 at n = 716, d = 7850: x1e-20 rows, whose products are all
+    subnormal (the reference flushes them: every distance 0, ties to the
+    lower index), alone and beside rows at unit scale and at 1e-30
+    (subnormal inputs). B1 and the plain path on the card give the CPU
+    plain path's scores and accept set."""
+    x = torch.randn(716, 7850, generator=torch.Generator().manual_seed(7)) * 1e-20
+    if case == "mixed_scales":
+        x[::7] *= 1e20
+        x[3::11] *= 1e-10
+    f = default_num_adversaries(716)
+    oracle = krum_cuda.krum_scores_plain(x, f)
+    want = accept_mask(oracle, 716 - f)
+    if case == "all_subnormal_products":
+        assert not oracle.any()
+        assert torch.equal(torch.nonzero(want)[:, 0], torch.arange(716 - f))
+    for got in (krum_cuda.krum_scores_kernel(x.to(dev), f),
+                krum_cuda.krum_scores_plain(x.to(dev), f)):
+        got = got.cpu()
+        assert torch.equal(got == 0, oracle == 0)
+        assert _rel_err(got, oracle) < RTOL
+        assert torch.equal(accept_mask(got, 716 - f), want)
+    assert torch.equal(krum_accept_mask(x.to(dev), f).cpu(), want)
+
+
 # ------------------------------------------------ kernel B2, the crypto plane
 
 

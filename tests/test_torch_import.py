@@ -46,6 +46,13 @@ def test_port_modules_import_without_jax_or_reference():
         "runtime", "runtime.codecs", "runtime.messages", "runtime.wire",
         "runtime.protocol", "runtime.rpc")}
     assert slice5 <= set(mods), slice5 - set(mods)
+    slice6 = {"biscotti_tpu_torch." + m for m in (
+        "config", "runtime.faults", "runtime.admission", "runtime.stragglers",
+        "runtime.overlay", "runtime.placement", "runtime.membership",
+        "runtime.adversary", "ops.trust", "telemetry.recorder",
+        "telemetry.tracectx", "telemetry.core", "tools.keygen",
+        "runtime.peer")}
+    assert slice6 <= set(mods), slice6 - set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -77,3 +84,20 @@ def test_simulator_without_device_needs_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         with device_trace(os.devnull):
             pass
+
+
+def test_peer_without_device_needs_a_gpu(monkeypatch):
+    """PeerAgent and the peer's CLI resolve the GPU and raise without one,
+    and so does arming the crypto plane without a device named."""
+    from biscotti_tpu_torch.crypto import kernels
+    from biscotti_tpu_torch.runtime import peer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = BiscottiConfig(dataset="creditcard", num_nodes=4, base_port=17990)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        peer.PeerAgent(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        peer.main(["-i", "0", "-t", "4", "-d", "creditcard", "-p", "17990"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kernels.set_enabled(True)
+    assert not kernels.active()

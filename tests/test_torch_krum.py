@@ -58,20 +58,27 @@ def _kernel_order_scores(x: np.ndarray, f: int, sms: int = 132) -> np.ndarray:
     entry as its order key (a generated NaN 0, a propagated NaN after
     +inf, a number its bits + 1); the exact k-th smallest key by the
     31-step bisection; the score from the keys' values, or the NaN of its
-    class; the tie rule."""
+    class; the tie rule; and the subnormal rule of the pre-pass (inputs
+    below FLT_MIN as 0, row maxima) and the epilogue (G as 0 where the
+    maxima's product or G itself is subnormal, a subnormal D as 0)."""
+    tiny = torch.finfo(torch.float32).tiny
     t = torch.from_numpy(x)
+    t = torch.where(t.abs() < tiny, 0.0, t)
+    amax = t.abs().amax(-1)
     n, d = t.shape
     _, d_pad, _, splits = krum_cuda.plan(n, d, sms)
     kt = d_pad // krum_cuda.K_TILE
     edges = [min(d, s * kt // splits * krum_cuda.K_TILE) for s in range(splits + 1)]
     g = sum((t[:, a:b] @ t[:, a:b].T for a, b in zip(edges, edges[1:])),
             torch.zeros(n, n))
-    sq = (t * t).sum(-1)
+    g = torch.where((amax[:, None] * amax[None, :] < tiny) | (g.abs() < tiny),
+                    0.0, g)
+    sq = torch.where(t * t < tiny, 0.0, t * t).sum(-1)
     dist = ((sq[:, None] + sq[None, :]).double() - 2 * g.double()).float()
     nan_in = torch.isnan(sq)
     far = nan_in[:, None] | nan_in[None, :]
     near = torch.isnan(dist) & ~far
-    dist = torch.where(dist > 0, dist, torch.zeros(()))
+    dist = torch.where(dist >= tiny, dist, torch.zeros(()))
     dist.diagonal().add_(float("inf"))
     key = dist.view(torch.int32).long() + 1
     key[near], key[far] = 0, 0x7FC00001
@@ -284,3 +291,57 @@ def test_same_nonfinite_tells_the_classes_apart():
     for b in ([1.0, far, float("inf"), 2.0], [1.0, near, 3.0, 2.0],
               [1.0, near, float("-inf"), 2.0], [near, near, float("inf"), 2.0]):
         assert not same_nonfinite(torch.tensor(b), a)
+
+
+# ---------------------------------------------- ROADMAP C2: subnormals
+
+
+def _c2_check(x: np.ndarray) -> None:
+    """Port scores (all three CPU routes and the kernel's model) equal the
+    reference's, and the accept masks are the reference's."""
+    n = x.shape[0]
+    f = default_num_adversaries(n)
+    # k = n - f - 2 = 0 never reaches the kernel: its wrapper returns zeros
+    model = [_kernel_order_scores(x, f)] if n - f - 2 > 0 else []
+    ref = np.asarray(jkrum_scores(jnp.asarray(x), f))
+    for got in _port_scores(x, f) + model:
+        assert_scores_match(ref, got)
+    want = np.asarray(jkrum_accept_mask(jnp.asarray(x), f))
+    assert np.array_equal(krum_accept_mask(torch.from_numpy(x), f).numpy(), want)
+    for scores in model:
+        kernel = accept_mask(torch.from_numpy(scores), n - f)
+        assert np.array_equal(kernel.numpy(), want)
+
+
+def test_subnormal_distances_accept_as_the_reference():
+    # ROADMAP C2's input: every product is subnormal, so the reference's
+    # flush-to-zero makes every distance 0 and ties go to the lower index
+    x = (np.random.default_rng(0).normal(size=(6, 8)) * 1e-20).astype(np.float32)
+    assert np.flatnonzero(krum_accept_mask(torch.from_numpy(x), 3)).tolist() \
+        == [0, 1, 2]
+    assert not krum_scores(torch.from_numpy(x), 3).any()
+    _c2_check(x)
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_subnormal_fuzz_class_matches_reference(seed):
+    # the x1e-20 class of the differential fuzz, n <= 13, d <= 8; one row
+    # of each case is scaled to 1e-30 (subnormal inputs) and, from seed 4
+    # on, one is left at unit scale (normal next to flushed entries)
+    rng = np.random.default_rng(100 + seed)
+    for _ in range(12):
+        n, d = int(rng.integers(3, 14)), int(rng.integers(1, 9))
+        x = rng.normal(size=(n, d)) * 1e-20
+        x[int(rng.integers(n))] *= 1e-10
+        if seed >= 4:
+            x[int(rng.integers(n))] *= 1e20
+        _c2_check(x.astype(np.float32))
+
+
+def test_subnormal_rows_at_mnist_width_with_default_threads():
+    # (64, 7850) x 1e-20 with torch's default intra-op pool: the flush is
+    # the port's own arithmetic, not the calling thread's FTZ state, which
+    # torch.set_flush_denormal sets and the pool's threads do not share
+    assert torch.get_num_threads() >= 1
+    x = (np.random.default_rng(0).normal(size=(64, 7850)) * 1e-20).astype(np.float32)
+    _c2_check(x)

@@ -87,6 +87,29 @@ def test_multikrum_mask_on_nonfinite_updates(seed, value, n, m):
     assert np.array_equal(pra.multikrum_accept_mask(px, f, m).numpy(), ref)
 
 
+@pytest.mark.parametrize("m", [0, 3])
+def test_multikrum_mask_on_subnormal_distances(m):
+    # ROADMAP C2: the reference flushes subnormals, so every distance of
+    # its input is 0 and ties go to the lower index; the x1e-20 class of
+    # the fuzz at n <= 13, d <= 8; and (64, 7850) with torch's default
+    # intra-op threads
+    x = np.random.default_rng(0).normal(size=(6, 8)) * 1e-20
+    cases = [x]
+    rng = np.random.default_rng(7)
+    for _ in range(40):
+        n, d = int(rng.integers(3, 14)), int(rng.integers(1, 9))
+        cases.append(rng.normal(size=(n, d)) * 1e-20)
+    cases.append(np.random.default_rng(0).normal(size=(64, 7850)) * 1e-20)
+    for x in cases:
+        jx, px = _both(x)
+        f = default_num_adversaries(x.shape[0])
+        ref = np.asarray(jra.multikrum_accept_mask(jx, f, m))
+        assert np.array_equal(pra.multikrum_accept_mask(px, f, m).numpy(), ref)
+    x = _both(cases[0])[1]
+    assert np.flatnonzero(pra.multikrum_accept_mask(x, 3, m)).tolist() == \
+        list(range(pra.multikrum_m(6, 3) if m == 0 else m))
+
+
 # ------------------------------------------------ trimmed mean and median
 
 
