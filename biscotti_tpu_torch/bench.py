@@ -3,7 +3,7 @@
 the GPU.
 
     python -m biscotti_tpu_torch.bench [--configs NAME,NAME] [--rounds N]
-                                       [--device cpu]
+                                       [--device cpu] [--density 100,400]
 
 For each config:
   * device round — the port's `Simulator`, 2 warm rounds, then 10 timed
@@ -40,6 +40,10 @@ flat (`cross_host_bytes_per_round`) and through the aggregation overlay
 (`cross_host_bytes_per_round_overlay`), with their ratio
 `overlay_cross_host_saving_x`.
 
+With `--density`, the reference's peer-density entry (bench.py:452-517)
+runs too (`bench_peer_density`): one process of the port's hive CLI a
+size, live mnist hives on the bench's device, under `peer_density`.
+
 Standard output is one JSON line: the device, the card's `name,
 power.limit` as nvidia-smi prints it (null on the CPU), whether the native
 EC plane ran the host crypto, one row a config
@@ -54,6 +58,7 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+import sys
 import time
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
@@ -345,6 +350,67 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
+DENSITY_SIZES = (100, 400, 1000)
+
+
+def density_row(summary: Optional[dict], rc: int = 0,
+                stderr: str = "") -> dict:
+    """One size's row from the hive launcher's summary (the reference's
+    columns, bench.py:502-510), or its error row when the process died
+    before printing one."""
+    if summary is None:
+        return {"error": f"no summary (rc={rc})", "stderr_tail": stderr[-800:]}
+    return {
+        "peers": summary["peers"],
+        "blocks": summary["blocks"],
+        "chains_equal": summary["chains_equal_local"],
+        "s_per_iter": summary["s_per_iter"],
+        "rss_peak_mb": round(summary["rss_peak_bytes"] / 2**20, 1),
+        "rss_per_peer_mb": round(summary["rss_per_peer_bytes"] / 2**20, 2),
+        "loop_lag_s": summary["loop_lag_s"],
+        "sgd_batches": summary.get("sgd_batches"),
+        # the port's own columns: where the peak came from (ROADMAP C5) and
+        # the hive monitor's largest RSS sample a peer
+        "rss_peak_source": summary.get("rss_peak_source"),
+        "rss_sampled_max_per_peer_mb": round(
+            summary.get("rss_sampled_max_bytes", 0) / 2**20
+            / max(1, summary["peers"]), 2),
+    }
+
+
+def bench_peer_density(sizes=DENSITY_SIZES, iterations: int = 2,
+                       budget_s: float = 900.0, platform: str = "cuda") -> dict:
+    """The reference's scale-frontier entry (bench.py:452-517): live
+    hive-hosted clusters at N in `sizes`, each one process of the port's
+    hive CLI (`python -m biscotti_tpu_torch.runtime.hive`, mnist, plain
+    mode, Krum verification, seed 3) on `platform`, so its RSS peak is its
+    own. Reports s/iter, peak RSS per co-hosted peer, loop lag and the
+    chain-equality verdict a size; a failed or timed-out size, or one the
+    budget no longer covers, gives an error row, never a sunk bench."""
+    from biscotti_tpu_torch.tools.pod_launch import REPO, hive_summary
+
+    out = {}
+    deadline = time.time() + budget_s
+    for n in sizes:
+        name = f"n{n}"
+        budget = deadline - time.time()
+        if budget < 30.0:
+            out[name] = {"error": "density budget exhausted"}
+            continue
+        cmd = [sys.executable, "-m", "biscotti_tpu_torch.runtime.hive",
+               "-t", str(n), "-d", "mnist", "--iterations", str(iterations),
+               "-sa", "0", "-np", "0", "-vp", "1", "--seed", "3",
+               "--platform", platform]
+        try:
+            proc = subprocess.run(cmd, cwd=REPO, capture_output=True,
+                                  text=True, timeout=budget)
+            out[name] = density_row(hive_summary(proc.stdout),
+                                    proc.returncode, proc.stderr)
+        except Exception as e:
+            out[name] = {"error": f"{type(e).__name__}: {e}"}
+    return out
+
+
 def run(names: Optional[List[str]] = None, rounds: int = 0,
         device: Optional[Union[str, torch.device]] = None) -> dict:
     """The bench over `names` (every config when not given); `rounds`
@@ -379,12 +445,21 @@ def main(argv=None) -> int:
                     help="timed rounds a config (10, or 4 for model rows)")
     ap.add_argument("--device", default=None,
                     help="torch device; the GPU when not given")
+    ap.add_argument("--density", default="",
+                    help="comma-separated hive sizes for the peer-density "
+                         "entry (e.g. 100,400,1000; none when empty); its "
+                         "rows land under peer_density")
     ns = ap.parse_args(argv)
     names = [n for n in ns.configs.split(",") if n]
     unknown = set(names) - set(dict(CONFIGS))
     if unknown:
         ap.error(f"unknown configs: {sorted(unknown)}")
-    print(json.dumps(run(names, ns.rounds, ns.device)), flush=True)
+    out = run(names, ns.rounds, ns.device)
+    sizes = [int(x) for x in ns.density.split(",") if x]
+    if sizes:
+        out["peer_density"] = bench_peer_density(
+            sizes, platform=str(resolve_device(ns.device).type))
+    print(json.dumps(out), flush=True)
     return 0
 
 

@@ -143,10 +143,31 @@ printed as one JSON line:
               unstarted card peer and a CPU peer give the same KRUM,
               MULTIKRUM, FOOLSGOLD, RONI and ENSEMBLE masks on seeded
               12-row pools at d = 7,850 and on C2's x1e-20 rows;
+  hive        co-hosted port peers on the card, one process, loopback
+              transport, one batched SGD call a round (runtime/hive.py):
+              (a) the reference's density entry at N = 100 (bench.py:452)
+              through `bench.bench_peer_density`, a subprocess of `python -m
+              biscotti_tpu_torch.runtime.hive -t 100 -d mnist --iterations
+              2 -sa 0 -np 0 -vp 1 --seed 3` (d = 7,850): s/iter, peak RSS
+              per peer, loop lag, stepper batches, chains equal; (b) a Hive
+              of 100 mnist_cnn peers (d = 164,266), KRUM, 2 rounds, then one
+              HiveStepper batch at the final weights: its draws' host ms,
+              its time (CUDA events) and torch.profiler's device ms and
+              kernel count, every peer's delta held to its standalone
+              Trainer's on the card (rtol 1e-4); (c) a Hive of 528 mnist
+              softmax peers, 1 verifier, 1 miner, 1 noiser, plain mode with
+              KRUM, 2 rounds: the verifier's pool of 526 updates lies in
+              B1's window, so B1 scores it inside the live round (its
+              launch count must rise), then B1 on that pool against its
+              plain version (accept sets equal, rtol 1e-4) and timed as in
+              phase 3; (d) a single-device BatchStepper cluster of 8 mnist
+              peers, 2 rounds. Each cell: chains equal, every round a
+              non-empty block;
   6. kernels  one line for every ported kernel (B1's launches from phases
-              4, defenses, cnn and ledger, with its times at (716, 164266)
-              beside those at (716, 7850); B2's from the crypto and secagg
-              phases' intakes and the live miners' folds).
+              4, defenses, cnn, ledger and hive (c), with its times at
+              (716, 164266) and at the hive's live pool beside those at
+              (716, 7850); B2's from the crypto and secagg phases' intakes
+              and the live miners' folds).
 
 Then the card's `name, power.limit` line as nvidia-smi prints it (the line
 the run's records are keyed by) and, last, the device JSON. Any
@@ -212,6 +233,16 @@ LEDGER_CODECS = ("raw64", "f32+zlib")
 LIVE_PEERS = 7
 LIVE_ARMED_PEERS = 4
 LIVE_BASE_PORT = 17500
+# the hive phase: (a) the reference's density entry at N = 100 (its CLI's
+# default ports, 8000 + id), (b) 100 mnist_cnn peers, (c) N = 528, whose
+# verifier pools 526 updates, inside B1's 512..4096 window, (d) a
+# single-device BatchStepper cluster
+HIVE_DENSITY_N = 100
+HIVE_CNN_N = 100
+HIVE_POOL_N = 528
+HIVE_POOL_ROUNDS = 2
+HIVE_CLUSTER_N = 8
+HIVE_BASE_PORT = 18000
 
 
 def emit(phase: str, **fields) -> None:
@@ -1665,6 +1696,214 @@ def live_phase() -> dict:
             "seconds": time.perf_counter() - t_phase}
 
 
+def hive_cell(name: str, cfg, pool_hook: bool = False):
+    """A port `Hive` of every peer of `cfg` on the card (device None: the
+    GPU), run to the end: (row, hive, results, the verifier pools of 512 or
+    more rows that `_defense_mask` was handed). The row holds the chain-
+    equality oracle, each round's wall time (peer 0's log stamps, the
+    first from the run's start), the verifier decisions [round, pool,
+    accepted], the stepper's batches and the hive's readout."""
+    import asyncio
+
+    from biscotti_tpu_torch.runtime import hive as phive
+
+    rss_before = phive.rss_bytes()
+    t_setup = time.perf_counter()
+    hive = phive.Hive(cfg, hive_id=name)
+    setup_s = time.perf_counter() - t_setup
+    pools = []
+    if pool_hook:
+        for agent in hive.agents:
+            def seen(vecs, _mask=agent._defense_mask):
+                if len(vecs) >= 512:
+                    pools.append(np.array(vecs, np.float32))
+                return _mask(vecs)
+
+            agent._defense_mask = seen
+    t0 = time.time()
+    results = asyncio.run(hive.run())
+    run_s = time.time() - t0
+    summary = phive.summarize(hive, results, run_s, cfg.max_iterations)
+    blocks = results[0]["chain_dump"].splitlines()[1:]
+    stamps = [float(line.split(",")[2]) for line in results[0]["logs"]]
+    verdicts = sorted([v["it"], len(v["src"]), sum(v["accept"])]
+                      for r in results
+                      for v in r["telemetry"].get("trust", {}).get("stream", []))
+    phases: dict = {}
+    for r in results:
+        for ph, v in r["phases"].items():
+            phases[ph] = phases.get(ph, 0.0) + v["total_s"]
+    row = {"cell": name, "peers": cfg.num_nodes, "dataset": cfg.dataset,
+           "model": cfg.model_name or "default",
+           "params": hive.agents[0].trainer.num_params,
+           "device": str(hive.device),
+           "chains_equal": summary["chains_equal_local"],
+           "rounds": len(blocks), "rounds_wanted": cfg.max_iterations,
+           "nonempty_blocks": sum("ndeltas=0" not in b for b in blocks),
+           "verdicts": verdicts, "setup_s": setup_s, "run_s": run_s,
+           "round_wall_s": [b - a for a, b in zip([t0] + stamps, stamps)],
+           "sgd_batches": summary["sgd_batches"],
+           "evals": hive.stepper.evals if hive.stepper else None,
+           # the process's RSS before the hive and at the monitor's last
+           # sample of its run: this process has run every earlier phase,
+           # so its peak is theirs too, and the growth is the hive's
+           "rss_before_bytes": rss_before,
+           "rss_in_run_bytes": hive.info["rss_bytes"],
+           "rss_growth_per_peer_bytes":
+               (hive.info["rss_bytes"] - rss_before) // cfg.num_nodes,
+           "rss_sampled_max_bytes": summary["rss_sampled_max_bytes"],
+           "loop_lag_s": summary["loop_lag_s"],
+           "loopback_avoided_bytes_per_round":
+               summary["loopback_avoided_bytes_per_round"],
+           "final_error": summary["final_error"],
+           "phases_total_s": {k: round(v, 4) for k, v in sorted(
+               phases.items(), key=lambda kv: -kv[1])},
+           "anchor_phases_s": {k: round(v["total_s"], 4) for k, v in sorted(
+               results[0]["phases"].items(), key=lambda kv: -kv[1]["total_s"])},
+           "chain": blocks}
+    if not (row["chains_equal"] and row["rounds"] == row["rounds_wanted"]
+            and row["nonempty_blocks"] == row["rounds"]
+            and row["device"] == "cuda" and summary["batch_device"]):
+        raise AssertionError(f"hive cell {name} failed the oracle: {row}")
+    return row, hive, results, pools
+
+
+def hive_phase(dev) -> dict:
+    """The hive on the card, cells (a)-(d) of the module docstring; returns
+    the phase's row with B1's launches in (c)'s live round."""
+    import asyncio
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from biscotti_tpu_torch import bench
+    from biscotti_tpu_torch.config import BiscottiConfig, Defense
+    from biscotti_tpu_torch.data import datasets as ds
+    from biscotti_tpu_torch.models.trainer import Trainer
+    from biscotti_tpu_torch.ops import krum_cuda
+    from biscotti_tpu_torch.ops.krum import default_num_adversaries
+    from biscotti_tpu_torch.runtime.device_cluster import run_cluster
+
+    t_phase = time.perf_counter()
+    # (a) the reference's density entry, through the port's hive CLI
+    t0 = time.perf_counter()
+    density = bench.bench_peer_density(sizes=(HIVE_DENSITY_N,), iterations=2,
+                                       budget_s=300.0, platform="cuda")
+    a = density[f"n{HIVE_DENSITY_N}"]
+    emit("hive", cell="a_density_n100", seconds=time.perf_counter() - t0, **a)
+    if "error" in a or not (a["chains_equal"] and a["blocks"] == 2):
+        raise AssertionError(f"hive (a): the density entry failed: {a}")
+
+    def cell_cfg(n: int, port: int, rounds: int, **kw):
+        cfg = BiscottiConfig(num_nodes=n, dataset="mnist", base_port=port,
+                             num_verifiers=1, num_miners=1, num_noisers=1,
+                             secure_agg=False, noising=False,
+                             verification=True, defense=Defense.KRUM,
+                             max_iterations=rounds, convergence_error=0.0,
+                             sample_percent=1.0, seed=0, **kw)
+        # the hive CLI's deadlines (hive.py main): the reference's scaling
+        return cfg.replace(timeouts=cfg.timeouts.scaled(
+            n, 1, 1, random_sampling=False, defense_is_krum=True))
+
+    # (b) 100 mnist_cnn peers; one batch profiled and held to the peers'
+    # standalone Trainers on the card
+    cfg_b = cell_cfg(HIVE_CNN_N, HIVE_BASE_PORT, 2, model_name="mnist_cnn")
+    b, hive_b, _, _ = hive_cell("b_cnn_n100", cfg_b)
+    st = hive_b.stepper
+    w = np.asarray(hive_b.agents[0].chain.latest_gradient())
+    wt = torch.from_numpy(w.astype(np.float32)).to(dev)
+    it = cfg_b.max_iterations
+    draws_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx = st.draw_batches(it)
+        torch.cuda.synchronize()
+        draws_ms.append(1e3 * (time.perf_counter() - t0))
+    batch_ms = time_ms(lambda: st.deltas_from_draws(wt, idx), reps=5)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        deltas = st.deltas_from_draws(wt, idx)
+        torch.cuda.synchronize()
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    worst = 0.0
+    for slot, pid in enumerate(st.local_ids):
+        t = Trainer(cfg_b.dataset, ds.shard_name(cfg_b.dataset, pid, False),
+                    cfg=cfg_b.replace(node_id=pid), seed=pid)
+        want = torch.from_numpy(t.private_fun(w, it))
+        got = deltas[slot].double().cpu()
+        diff = float((got - want).abs().max())
+        worst = max(worst, diff)
+        if not torch.allclose(got, want, rtol=RTOL,
+                              atol=RTOL * float(want.abs().max())):
+            raise AssertionError(f"hive (b): peer {pid}'s batched delta is "
+                                 f"not its standalone Trainer's: {diff}")
+    b.update(batch_peers=len(st.local_ids), batch_ms=batch_ms,
+             batch_device_ms=sum(e.self_device_time_total
+                                 for e in on_device) / 1e3,
+             batch_kernels=sum(e.count for e in on_device),
+             draws_host_ms=draws_ms, trainer_max_abs_diff=worst,
+             top=[{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
+                   "calls": e.count} for e in sorted(
+                       on_device, key=lambda e: -e.self_device_time_total)[:6]])
+    emit("hive", **b)
+    if b["sgd_batches"] != cfg_b.max_iterations:
+        raise AssertionError(f"hive (b): {b['sgd_batches']} batches, not one "
+                             f"a round")
+    del hive_b, st, deltas
+    torch.cuda.empty_cache()
+
+    # (c) N = 528: the verifier's live pool in B1's window
+    cfg_c = cell_cfg(HIVE_POOL_N, HIVE_BASE_PORT + 1000, HIVE_POOL_ROUNDS)
+    krum_cuda.krum_scores_kernel.launches = 0
+    c, _, _, pools = hive_cell("c_pool_n528", cfg_c, pool_hook=True)
+    c["b1_launches"] = krum_cuda.krum_scores_kernel.launches
+    c["pool_sizes"] = [len(p) for p in pools]
+    # the round's verifier scores its pool of N - 2 on B1, once a pool
+    if not (len(pools) >= HIVE_POOL_ROUNDS
+            and all(len(p) >= 512 for p in pools)
+            and c["b1_launches"] == len(pools)):
+        raise AssertionError(f"hive (c): B1 scored no live pool of 512 or "
+                             f"more: {c}")
+    x = torch.from_numpy(pools[0]).to(dev)
+    f = default_num_adversaries(x.shape[0])
+    got, ref = krum_cuda.krum_scores_kernel(x, f), krum_cuda.krum_scores_plain(x, f)
+    keep = x.shape[0] - f
+    c["b1_on_the_live_pool"] = {
+        "n": x.shape[0], "d": x.shape[1], "max_abs_err": float((got - ref).abs().max()),
+        "max_rel_err": rel_err(got, ref),
+        "accept_set_identical": accept_set(got, keep) == accept_set(ref, keep),
+        **krum_times(x, f)}
+    emit("hive", **{k: v for k, v in c.items() if k != "chain"},
+         chain=c["chain"])
+    if not (c["b1_on_the_live_pool"]["accept_set_identical"]
+            and c["b1_on_the_live_pool"]["max_rel_err"] < RTOL):
+        raise AssertionError(f"hive (c): B1 on the live pool disagrees with "
+                             f"plain: {c['b1_on_the_live_pool']}")
+
+    # (d) the single-device BatchStepper cluster
+    cfg_d = cell_cfg(HIVE_CLUSTER_N, HIVE_BASE_PORT - 300, 2)
+    t0 = time.perf_counter()
+    stepper, agents, results = asyncio.run(run_cluster(cfg_d, None, 2))
+    dumps = [r["chain_dump"] for r in results]
+    blocks = dumps[0].splitlines()[1:]
+    d = {"cell": "d_batch_stepper_n8", "peers": HIVE_CLUSTER_N,
+         "device": str(stepper.device), "seconds": time.perf_counter() - t0,
+         "chains_equal": all(x == dumps[0] for x in dumps),
+         "rounds": len(blocks),
+         "nonempty_blocks": sum("ndeltas=0" not in x for x in blocks),
+         "batches": stepper.batches, "evals": stepper.evals, "chain": blocks}
+    emit("hive", **d)
+    if not (d["chains_equal"] and d["rounds"] == 2 and d["nonempty_blocks"] == 2
+            and d["device"] == "cuda" and 1 <= d["batches"] <= 3):
+        raise AssertionError(f"hive (d): the BatchStepper cluster failed: {d}")
+    torch.cuda.synchronize()
+    return {"b1_launches": c["b1_launches"],
+            "live_pool_kernel": c["b1_on_the_live_pool"],
+            "seconds": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     import torch
 
@@ -1924,17 +2163,22 @@ def main() -> int:
     # live: slice 6, clusters of port peers on the card --------------------
     live = live_phase()
 
+    # hive: slice 7, co-hosted port peers on the card -----------------------
+    hive = hive_phase(dev)
+
     # 6. kernels ----------------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "krum_scores", "route": "cuda",
         "source": "biscotti_tpu_torch/csrc/krum_scores.cu",
         "replaces": "biscotti_tpu/ops/krum_pallas.py:72",
         "launches": (main_launches + defenses["b1_launches"]
-                     + cnn["b1_launches"] + ledger["b1_launches"]),
+                     + cnn["b1_launches"] + ledger["b1_launches"]
+                     + hive["b1_launches"]),
         "launches_by_phase": {"main": main_launches,
                               "defenses": defenses["b1_launches"],
                               "cnn": cnn["b1_launches"],
-                              "ledger": ledger["b1_launches"]},
+                              "ledger": ledger["b1_launches"],
+                              "hive": hive["b1_launches"]},
         "max_abs_err": main_kernel["max_abs_err"],
         "ms": main_kernel["ms"], "plain_ms": main_kernel["plain_ms"],
         "bound_ms": main_kernel["bound_ms"], "bound_by": main_kernel["bound_by"],
@@ -1943,7 +2187,11 @@ def main() -> int:
         "gram_cublas_ms": main_kernel["gram_cublas_ms"],
         "at_716x164266": {k: cnn_kernel[k] for k in (
             "max_abs_err", "ms", "kernel_only_ms", "plain_ms", "gram_cublas_ms",
-            "bound_ms", "bound_by", "accept_set_identical")}}, {
+            "bound_ms", "bound_by", "accept_set_identical")},
+        "at_the_hive_live_pool": {k: hive["live_pool_kernel"][k] for k in (
+            "n", "d", "max_abs_err", "ms", "kernel_only_ms", "plain_ms",
+            "gram_cublas_ms", "bound_ms", "bound_by",
+            "accept_set_identical")}}, {
         "name": "oncurve_validate", "route": "cuda",
         "source": "biscotti_tpu_torch/csrc/oncurve.cu",
         "replaces": "biscotti_tpu/crypto/kernels/pallas_validate.py:34",

@@ -154,3 +154,51 @@ def test_byte_columns_equal_reference(name):
     for codec in ("raw64", "f32+zlib", "topk+f32+zlib"):
         assert bench._round_frame_bytes(cfg, w, accepted, codec) \
             == ref_bench._round_frame_bytes(ref_cfg, w, accepted, codec)
+
+
+def test_peer_density_parses_summaries_and_keeps_error_rows(monkeypatch):
+    """`bench_peer_density` runs one process of the port's hive CLI a
+    size (the reference's command, bench.py:478-481, on the asked-for
+    device), parses its summary line with pod_launch's `hive_summary`
+    into the reference's columns, and turns a process that printed no
+    summary, one that raised, and a size the budget no longer covers into
+    error rows."""
+    import subprocess
+    import types
+
+    summary = {"peers": 100, "blocks": 2, "chains_equal_local": True,
+               "s_per_iter": 1.5, "rss_peak_bytes": 3 * 2**30,
+               "rss_per_peer_bytes": 3 * 2**30 // 100, "loop_lag_s": 0.01,
+               "sgd_batches": 2, "rss_peak_source": "VmHWM",
+               "rss_sampled_max_bytes": 2 * 2**30}
+    calls = []
+
+    def fake_run(cmd, **kw):
+        calls.append(cmd)
+        n = int(cmd[cmd.index("-t") + 1])
+        if n == 100:
+            return types.SimpleNamespace(
+                stdout="log line\n" + json.dumps(summary) + "\n",
+                stderr="", returncode=0)
+        if n == 400:
+            return types.SimpleNamespace(stdout="", stderr="x" * 900 + "Killed",
+                                         returncode=-9)
+        raise subprocess.TimeoutExpired(cmd, kw["timeout"])
+
+    monkeypatch.setattr(bench.subprocess, "run", fake_run)
+    out = bench.bench_peer_density(platform="cpu")
+    assert calls[0][2:] == ["biscotti_tpu_torch.runtime.hive", "-t", "100",
+                            "-d", "mnist", "--iterations", "2", "-sa", "0",
+                            "-np", "0", "-vp", "1", "--seed", "3",
+                            "--platform", "cpu"]
+    assert out["n100"] == {"peers": 100, "blocks": 2, "chains_equal": True,
+                           "s_per_iter": 1.5, "rss_peak_mb": 3072.0,
+                           "rss_per_peer_mb": 30.72, "loop_lag_s": 0.01,
+                           "sgd_batches": 2, "rss_peak_source": "VmHWM",
+                           "rss_sampled_max_per_peer_mb": 20.48}
+    assert out["n400"]["error"] == "no summary (rc=-9)"
+    assert out["n400"]["stderr_tail"].endswith("Killed")
+    assert len(out["n400"]["stderr_tail"]) == 800
+    assert out["n1000"]["error"].startswith("TimeoutExpired")
+    out = bench.bench_peer_density(sizes=(100,), budget_s=10.0)
+    assert out == {"n100": {"error": "density budget exhausted"}}

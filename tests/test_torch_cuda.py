@@ -463,3 +463,30 @@ def test_recover_coeffs_card_matches_cpu(dev):
     assert np.array_equal(on_card, _armed_run("cpu", run))
     assert np.array_equal(on_card, _armed_run(None, run))
     assert np.array_equal(on_card, qs.sum(axis=0) / 10.0 ** 4)
+
+
+@pytest.mark.parametrize("model", ["", "mnist_cnn"])
+def test_hive_stepper_batch_card_matches_cpu(dev, model):
+    """One HiveStepper batch on the card equals the CPU port's on the same
+    draws (the card's own batch rows and normals), rtol 1e-4; the draws
+    are pure in (seed, peer, iteration) on each device."""
+    from biscotti_tpu_torch.config import BiscottiConfig
+    from biscotti_tpu_torch.runtime.hive import HiveStepper
+
+    cfg = BiscottiConfig(dataset="mnist", model_name=model, num_nodes=12,
+                         noising=True, epsilon=1.0, batch_size=10, seed=3)
+    ids = range(2, 10)
+    card = HiveStepper(cfg, ids, device=dev)
+    cpu = HiveStepper(cfg, ids, device="cpu")
+    w = torch.from_numpy(np.random.default_rng(0).normal(
+        0.0, 0.05, card.num_params).astype(np.float32))
+    idx = card.draw_batches(1)
+    assert torch.equal(idx, card.draw_batches(1))
+    got = card.deltas_from_draws(w, idx).cpu()
+    want = cpu.deltas_from_draws(w, idx.cpu())
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=RTOL * float(
+        want.abs().max()))
+    z = card.draw_noise(1)
+    torch.testing.assert_close(card.noise_from_draws(z).cpu(),
+                               cpu.noise_from_draws(z.cpu()), rtol=1e-6,
+                               atol=0.0)

@@ -53,6 +53,12 @@ def test_port_modules_import_without_jax_or_reference():
         "telemetry.tracectx", "telemetry.core", "tools.keygen",
         "runtime.peer")}
     assert slice6 <= set(mods), slice6 - set(mods)
+    slice7 = {"biscotti_tpu_torch." + m for m in (
+        "runtime.hive", "runtime.device_cluster", "tools.obs",
+        "tools.trace_round", "tools.sshim", "tools.bench_diff",
+        "tools.pod_launch", "tools.profile_round", "tools.soak",
+        "tools.chaos", "tools.verdicts")}
+    assert slice7 <= set(mods), slice7 - set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -227,19 +227,26 @@ def test_port_agent_survives_hostile_rpcs_and_still_serves():
     assert "blocks" in meta
 
 
+# The traced cluster's deadlines: under a loaded test run a cold first
+# `sgd` on the CPU took ~3 s of FAST's 4 s update window; these leave every
+# peer its round, and cost nothing when no deadline is reached.
+TRACED = dict(update_s=20.0, block_s=60.0, krum_s=20.0, share_s=20.0,
+              rpc_s=20.0)
+
+
 def test_traced_port_cluster_reconstructs_complete_rounds(tmp_path):
     """trace=True on an all-port cluster with event logs: the JSONL
     spills of the port's flight recorders reconstruct, through the
-    reference's stdlib tool (tools/trace_round.py), into one complete
-    trace a round spanning every peer, with a critical path."""
+    port's copy of the stdlib tool (tools/trace_round.py), into one
+    complete trace a round spanning every peer, with a critical path."""
     import json
 
-    from biscotti_tpu.tools import trace_round
+    from biscotti_tpu_torch.tools import trace_round
 
     n, port = 4, 17186
 
     async def go():
-        agents = [PeerAgent(_port_cfg(_kw(i, n, port, trace=True)),
+        agents = [PeerAgent(_port_cfg(_kw(i, n, port, trace=True), TRACED),
                             log_path=str(tmp_path / f"events_{i}.jsonl"),
                             device="cpu") for i in range(n)]
         return await asyncio.gather(*(a.run() for a in agents))

@@ -22,6 +22,14 @@ from test_torch_peer import SECAGG, _assert_chains_equal, _cluster, _kw, _port_c
 # on the CPU one round's intake settle and commitment batches take ~10 s
 ARMED = dict(update_s=20.0, block_s=60.0, krum_s=20.0, share_s=20.0,
              rpc_s=20.0)
+# each armed peer runs its prewarm (the ladders, seconds each, four threads
+# on one GIL) before its server starts, so under load one peer can start
+# serving tens of seconds after another sends it round 0's update; the
+# default budget (2 retries from 0.05 s, a breaker after 3 failures)
+# gives up in well under a second and the round mints an empty block. A
+# budget of ~30 s of retries rides out that startup skew.
+RETRIES = dict(rpc_retries=10, rpc_backoff_base_s=0.5, rpc_backoff_cap_s=5.0,
+               breaker_threshold=12)
 
 
 def test_all_port_device_crypto_armed_on_the_cpu(monkeypatch):
@@ -35,7 +43,7 @@ def test_all_port_device_crypto_armed_on_the_cpu(monkeypatch):
     try:
         results = _cluster(4, 17150, timeouts=ARMED, defense="KRUM",
                            device_crypto=True, batch_intake=True,
-                           max_iterations=1, **SECAGG)
+                           max_iterations=1, **SECAGG, **RETRIES)
         calls = kernels.device_calls()
     finally:
         kernels.set_enabled(False)
