@@ -43,6 +43,25 @@ flat (`cross_host_bytes_per_round`) and through the aggregation overlay
 With `--density`, the reference's peer-density entry (bench.py:452-517)
 runs too (`bench_peer_density`): one process of the port's hive CLI a
 size, live mnist hives on the bench's device, under `peer_density`.
+`--entries` runs the reference's other four entries on the bench's
+device, each under the reference's key, and each skipped as there by its
+`BISCOTTI_BENCH_*=0` switch:
+  * `straggler` → `straggler_degradation` (bench.py:569-682): live mnist
+    clusters of n = 10, secure aggregation on, at 0 / 10 / 20 % of peers
+    on FaultPlan's 4x slow profile (`plan_for`'s seed scan), fixed and
+    adaptive deadlines, after one discarded warm-up cluster;
+  * `attack_matrix` → `attack_matrix` (bench.py:685-750): the five guard
+    cells through the port's `eval.eval_attack_matrix.run_cell` at its
+    operating point (ATTACK_POINT);
+  * `migration` → `migration` (bench.py:753-832): a live two-hive cluster
+    of N = 100 under the placement controller, a rigged hot-host signal,
+    per-move downtime and ticket bytes;
+  * `crypto_kernel` → `crypto_kernel` (bench.py:520-566): the native host
+    `cm.msm` against the device plane's `kernels.msm` on the bench's
+    device at widths 8, 35 and 100 (on the card an eager ladder, seconds a
+    call; no availability probe skips it).
+The live entries take `base_port`; their defaults are the reference's
+(14310, 14190, 15700).
 
 Standard output is one JSON line: the device, the card's `name,
 power.limit` as nvidia-smi prints it (null on the CPU), whether the native
@@ -56,10 +75,13 @@ comment).
 from __future__ import annotations
 
 import argparse
+import asyncio
 import json
+import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -68,6 +90,7 @@ import torch
 from biscotti_tpu_torch.config import BiscottiConfig, Defense
 from biscotti_tpu_torch.crypto import _native
 from biscotti_tpu_torch.crypto import commitments as cm
+from biscotti_tpu_torch.crypto import ed25519 as ed
 from biscotti_tpu_torch.crypto import kernels
 from biscotti_tpu_torch.device import resolve_device, synchronize
 from biscotti_tpu_torch.ledger.block import Block, BlockData, Update
@@ -411,6 +434,276 @@ def bench_peer_density(sizes=DENSITY_SIZES, iterations: int = 2,
     return out
 
 
+# ------------------------------------------- the reference's other entries
+
+
+def msm_scalars(w: int) -> List[int]:
+    """The crypto-kernel entry's odd ~128-bit scalars (bench.py:547-548)."""
+    return [((i + 3) * 0x9E3779B97F4A7C15F39CC0605CEDC835) | 1
+            for i in range(w)]
+
+
+def bench_crypto_kernel(widths=(8, 35, 100),
+                        device: Optional[Union[str, torch.device]] = None
+                        ) -> dict:
+    """The native host `cm.msm` against the device plane's `kernels.msm`
+    on `device` (None: the GPU) across intake widths (bench.py:520-566):
+    seconds and points/s of each (mean of 3 calls after a warm one), and
+    whether the two results are the same group element."""
+    if os.environ.get("BISCOTTI_BENCH_CRYPTO_KERNEL", "1") == "0":
+        return {"skipped": "BISCOTTI_BENCH_CRYPTO_KERNEL=0"}
+    dev = resolve_device(device)
+    key = cm.CommitKey.generate(max(widths), label=b"bench-msm")
+    out = {}
+    for w in widths:
+        pts, scalars = key.points[:w], msm_scalars(w)
+        res = {}
+        cpu_s = _timeit(lambda: res.__setitem__("cpu", cm.msm(scalars, pts)),
+                        warm=1, iters=3)
+        dev_s = _timeit(lambda: res.__setitem__(
+            "dev", kernels.msm(scalars, pts, device=dev)), warm=1, iters=3)
+        out[f"w{w}"] = {
+            "cpu_msm_s": round(cpu_s, 5),
+            "device_msm_s": round(dev_s, 5),
+            "cpu_msm_points_per_s": round(w / max(cpu_s, 1e-9)),
+            "device_msm_points_per_s": round(w / max(dev_s, 1e-9)),
+            "results_equal": bool(ed.point_equal(res["cpu"], res["dev"])),
+        }
+    return out
+
+
+# bench.py:589-590
+STRAGGLER_TIMEOUTS = dict(update_s=12.0, block_s=30.0, krum_s=5.0,
+                          share_s=12.0, rpc_s=8.0)
+
+
+def plan_for(frac: float, n: int):
+    """(FaultPlan, seed) drawing exactly round(frac·n) slow peers at 4x
+    (bench.py:592-605): the per-node draw is probabilistic, so scan seeds
+    for the first whose table hits the count; -1 pins node 1 where none
+    does."""
+    from biscotti_tpu_torch.runtime.faults import FaultPlan
+
+    want = int(round(frac * n))
+    if want == 0:
+        return FaultPlan(), 0
+    for seed in range(500):
+        p = FaultPlan(seed=seed, slow=frac, slow_factor=4.0)
+        if len(p.slow_table(n)) == want:
+            return p, seed
+    return FaultPlan(slow_node=1, slow_factor=4.0), -1
+
+
+def straggler_case(plan, adaptive: bool, port: int, n: int = 10,
+                   rounds: int = 3,
+                   device: Optional[Union[str, torch.device]] = None) -> dict:
+    """One live mnist cluster of n port peers on `device` under `plan`
+    (bench.py:607-633): mean round time off the anchor's log stamps, the
+    settled-prefix oracle, real blocks, straggler exclusions."""
+    from biscotti_tpu_torch.config import Timeouts
+    from biscotti_tpu_torch.runtime.peer import PeerAgent
+    from biscotti_tpu_torch.tools.chaos import chain_oracle
+
+    def cfg(i):
+        return BiscottiConfig(
+            node_id=i, num_nodes=n, dataset="mnist", base_port=port,
+            num_verifiers=1, num_miners=1, num_noisers=1,
+            secure_agg=True, noising=False, verification=True,
+            max_iterations=rounds, convergence_error=0.0,
+            sample_percent=1.0, batch_size=10,
+            timeouts=Timeouts(**STRAGGLER_TIMEOUTS), seed=3,
+            fault_plan=plan, adaptive_deadlines=adaptive)
+
+    async def go():
+        agents = [PeerAgent(cfg(i), device=device) for i in range(n)]
+        return await asyncio.gather(*(a.run() for a in agents))
+
+    results = asyncio.run(go())
+    eq, _, real = chain_oracle(results)
+    stamps = [float(x.split(",")[2]) for x in results[0]["logs"]]
+    mean_round = ((stamps[-1] - stamps[0]) / (len(stamps) - 1)
+                  if len(stamps) >= 2 else None)
+    excluded = sum(
+        sum((r["telemetry"]["stragglers"]["excluded"] or {}).values())
+        for r in results)
+    return {"mean_round_s": (round(mean_round, 4)
+                             if mean_round is not None else None),
+            "chains_equal": eq, "real_blocks": real,
+            "straggler_excluded": excluded}
+
+
+# the first listen port of the straggler clusters (bench.py:640): below
+# the ephemeral range, so an earlier cluster's outbound socket cannot
+# squat a later one's listen port
+STRAGGLER_PORT = 14310
+
+
+def bench_straggler_degradation(n: int = 10, rounds: int = 3,
+                                budget_s: float = 600.0,
+                                base_port: int = STRAGGLER_PORT,
+                                device: Optional[Union[str, torch.device]]
+                                = None) -> dict:
+    """The straggler-degradation curve (bench.py:569-682): a discarded
+    warm-up cluster, then 0 / 10 / 20 % slowed peers × fixed and adaptive
+    deadlines, a fresh port block (n + 3) a case; a failed case, or one the
+    budget no longer covers, gives an error row. The 20 % rows carry
+    `vs_homogeneous`, their mean round over slow0_fixed's."""
+    if os.environ.get("BISCOTTI_BENCH_STRAGGLER", "1") == "0":
+        return {"skipped": "BISCOTTI_BENCH_STRAGGLER=0"}
+    from biscotti_tpu_torch.runtime.faults import FaultPlan
+
+    out = {}
+    deadline = time.time() + budget_s
+    port = base_port
+    try:  # the first cluster of the process pays the shard loads
+        straggler_case(FaultPlan(), False, port, n, rounds, device)
+        port += n + 3
+    except Exception as e:
+        print(f"[bench] straggler warm-up failed: {e}", file=sys.stderr)
+    for frac in (0.0, 0.10, 0.20):
+        plan, seed = plan_for(frac, n)
+        slowed = len(plan.slow_table(n))
+        for adaptive in (False, True):
+            name = (f"slow{int(frac * 100)}_"
+                    f"{'adaptive' if adaptive else 'fixed'}")
+            if time.time() > deadline - 30:
+                out[name] = {"error": "straggler budget exhausted"}
+                continue
+            try:
+                row = straggler_case(plan, adaptive, port, n, rounds, device)
+                row.update(slowed_peers=slowed, slow_seed=seed,
+                           slow_factor=4.0)
+                out[name] = row
+            except Exception as e:
+                out[name] = {"error": f"{type(e).__name__}: {e}"}
+            port += n + 3
+    base = (out.get("slow0_fixed") or {}).get("mean_round_s")
+    for k in ("slow20_fixed", "slow20_adaptive"):
+        row = out.get(k) or {}
+        if base and row.get("mean_round_s"):
+            row["vs_homogeneous"] = round(row["mean_round_s"] / base, 2)
+    return out
+
+
+# the attack-matrix driver's default operating point (bench.py:712-715)
+# and the five guard cells (:719-721)
+ATTACK_POINT = dict(nodes=10, verifiers=3, rounds=8, seed=11, poison=0.3,
+                    flood=30, dataset="mnist@dir0.3")
+ATTACK_CELLS = (("static", Defense.KRUM), ("hug", Defense.KRUM),
+                ("static", Defense.FOOLSGOLD), ("hug", Defense.FOOLSGOLD),
+                ("hug", Defense.ENSEMBLE))
+
+
+def bench_attack_matrix(budget_s: float = 600.0, base_port: int = 14190,
+                        device: Optional[Union[str, torch.device]] = None,
+                        cells=ATTACK_CELLS) -> dict:
+    """The attack-matrix guard cells (bench.py:685-750), each a live cell of
+    the port's `eval.eval_attack_matrix.run_cell` with secure aggregation
+    on, at ATTACK_POINT, on `device`: the survival bits and
+    `anchor_error`. A failed cell, or one the budget no longer covers,
+    gives an error row and `complete` False."""
+    if os.environ.get("BISCOTTI_BENCH_ATTACK", "1") == "0":
+        return {"skipped": "BISCOTTI_BENCH_ATTACK=0"}
+    from biscotti_tpu_torch.eval import eval_attack_matrix as am
+
+    ns = SimpleNamespace(**ATTACK_POINT)
+    out = {"complete": True}
+    deadline = time.time() + budget_s
+    port = base_port
+    for camp, d in cells:
+        name = f"{camp}_{d.value.lower()}"
+        if time.time() > deadline - 30:
+            out[name] = {"error": "attack-matrix budget exhausted"}
+            out["complete"] = False
+            continue
+        try:
+            row = am.run_cell(camp, d, True, port, ns, device=device)
+            out[name] = {k: row[k] for k in
+                         ("chains_equal", "survived",
+                          "failed", "accepted_poisoned_n")}
+            out[name]["anchor_error"] = row["final_error"]
+        except Exception as e:
+            out[name] = {"error": f"{type(e).__name__}: {e}"}
+            out["complete"] = False
+        port += ns.nodes + 2
+    return out
+
+
+def bench_migration(n: int = 100, iterations: int = 2,
+                    budget_s: float = 600.0, base_port: int = 15700,
+                    device: Optional[Union[str, torch.device]] = None
+                    ) -> dict:
+    """The migration-cost entry (bench.py:753-832): a live two-hive cluster
+    of n port peers on `device` under the placement controller, whose
+    signals rig the first hive hot so every decision point moves peers;
+    per-move downtime (`migration_downtime_s`) and ticket size
+    (`migration_bytes`), the surviving-prefix oracle."""
+    if os.environ.get("BISCOTTI_BENCH_MIGRATION", "1") == "0":
+        return {"skipped": "BISCOTTI_BENCH_MIGRATION=0"}
+    from biscotti_tpu_torch.runtime import placement
+    from biscotti_tpu_torch.runtime.hive import LoopbackHub
+    from biscotti_tpu_torch.runtime.membership import surviving_prefix_oracle
+    from biscotti_tpu_torch.runtime.peer import PeerAgent
+
+    plan = placement.PlacementPlan(enabled=True, seed=0, interval=1,
+                                   max_moves=2, lag_hot_s=0.05)
+    layout = placement.hive_layout(n, 2)
+    hive_ids = [f"host{i}" for i in range(len(layout))]
+    assignment = {node: hid for hid, (start, count) in zip(hive_ids, layout)
+                  for node in range(start, start + count)}
+    cfg = BiscottiConfig(
+        num_nodes=n, dataset="creditcard", base_port=base_port,
+        num_verifiers=1, num_miners=1, num_noisers=1,
+        secure_agg=False, noising=False, verification=False,
+        max_iterations=iterations, convergence_error=0.0,
+        sample_percent=1.0, batch_size=8, seed=3,
+        placement_plan=plan)
+    cfg = cfg.replace(timeouts=cfg.timeouts.scaled(
+        n, cfg.num_verifiers, cfg.num_miners))
+    hubs = {hid: LoopbackHub() for hid in hive_ids}
+
+    def make_agent(node, hive_id, ticket):
+        return PeerAgent(cfg.replace(node_id=node), hive=hubs[hive_id],
+                         ticket=ticket, device=device)
+
+    def rigged_signals(assignment, agents):
+        # on one box the real hive gauges are process-wide, so both hives
+        # read equally hot: the rig makes the cost measurable without
+        # faking the decision function
+        by = {}
+        for node, hid in sorted(assignment.items()):
+            by.setdefault(hid, []).append(node)
+        return [placement.HostSignals(
+            hive_id=hid, peers=tuple(nodes),
+            loop_lag_s=1.0 if hid == hive_ids[0] else 0.0)
+            for hid, nodes in sorted(by.items())]
+
+    ctl = placement.PlacementController(make_agent, assignment, plan,
+                                        signals_fn=rigged_signals)
+    try:
+        results = asyncio.run(asyncio.wait_for(ctl.run(), budget_s))
+    except Exception as e:
+        return {"error": f"{type(e).__name__}: {e}"}
+    equal, settled, real = surviving_prefix_oracle(results)
+    moves = len(ctl.moves_applied)
+    out = {"peers": n, "iterations": iterations, "moves": moves,
+           "chains_equal": equal, "settled_height": settled,
+           "real_blocks": real}
+    if moves:
+        out["migration_downtime_s"] = round(sum(ctl.downtimes_s) / moves, 4)
+        out["downtime_max_s"] = round(max(ctl.downtimes_s), 4)
+        out["migration_bytes"] = int(sum(ctl.ticket_bytes) / moves)
+        out["ticket_bytes_max"] = max(ctl.ticket_bytes)
+    return out
+
+
+# --entries name -> (the reference's key, the entry)
+ENTRIES = {"straggler": ("straggler_degradation", bench_straggler_degradation),
+           "attack_matrix": ("attack_matrix", bench_attack_matrix),
+           "migration": ("migration", bench_migration),
+           "crypto_kernel": ("crypto_kernel", bench_crypto_kernel)}
+
+
 def run(names: Optional[List[str]] = None, rounds: int = 0,
         device: Optional[Union[str, torch.device]] = None) -> dict:
     """The bench over `names` (every config when not given); `rounds`
@@ -449,16 +742,28 @@ def main(argv=None) -> int:
                     help="comma-separated hive sizes for the peer-density "
                          "entry (e.g. 100,400,1000; none when empty); its "
                          "rows land under peer_density")
+    ap.add_argument("--entries", default="",
+                    help="comma-separated entries of the reference bench to "
+                         "run on the bench's device (none when empty): "
+                         + ", ".join(ENTRIES) + "; each one's rows land "
+                         "under the reference's key")
     ns = ap.parse_args(argv)
     names = [n for n in ns.configs.split(",") if n]
     unknown = set(names) - set(dict(CONFIGS))
     if unknown:
         ap.error(f"unknown configs: {sorted(unknown)}")
+    entries = [e for e in ns.entries.split(",") if e]
+    unknown = set(entries) - set(ENTRIES)
+    if unknown:
+        ap.error(f"unknown entries: {sorted(unknown)}")
     out = run(names, ns.rounds, ns.device)
+    dev = resolve_device(ns.device)
     sizes = [int(x) for x in ns.density.split(",") if x]
     if sizes:
-        out["peer_density"] = bench_peer_density(
-            sizes, platform=str(resolve_device(ns.device).type))
+        out["peer_density"] = bench_peer_density(sizes, platform=dev.type)
+    for e in entries:
+        key, entry = ENTRIES[e]
+        out[key] = entry(device=dev)
     print(json.dumps(out), flush=True)
     return 0
 

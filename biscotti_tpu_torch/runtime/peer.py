@@ -18,7 +18,10 @@ The port differs from the reference at four seams, all device calls:
   * the trimmed mean runs `ops/robust_agg.trimmed_mean_aggregate`;
   * device crypto arms on the peer's device and raises where the
     reference would fall back to the CPU (no `available()` probe);
-  * `main()` has no x64 switch: the port's share math is numpy int64.
+  * `main()` has no x64 switch: the port's share math is numpy int64; its
+    `--platform` (`cuda`, the default, or `cpu`) names the peer's torch
+    device, the counterpart of the `JAX_PLATFORMS` the reference's peer
+    processes inherit.
 A device call inside a handler blocks the event loop while it runs, as the
 reference's `np.asarray` on a device result does.
 
@@ -5012,6 +5015,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="biscotti-tpu peer agent (PyTorch port, on the GPU)")
     BiscottiConfig.add_args(ap)
+    ap.add_argument("--platform", default="cuda",
+                    help="torch device of the peer: 'cuda' (the default; "
+                         "raises without a GPU) or 'cpu'")
     ap.add_argument("--key-dir", default="")
     ap.add_argument("--log-dir", default="")
     ap.add_argument("--ckpt-dir", default="")
@@ -5027,7 +5033,8 @@ def main(argv=None) -> int:
     ckpt_dir = (os.path.join(ns.ckpt_dir, f"node_{cfg.node_id}")
                 if ns.ckpt_dir else "")
     agent = PeerAgent(cfg, key_dir=ns.key_dir, log_path=log_path,
-                      ckpt_dir=ckpt_dir, ckpt_every=ns.ckpt_every)
+                      ckpt_dir=ckpt_dir, ckpt_every=ns.ckpt_every,
+                      device=ns.platform)
     result = asyncio.run(agent.run())
     print("=== CHAIN DUMP ===")
     print(result["chain_dump"])

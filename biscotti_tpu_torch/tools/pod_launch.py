@@ -1,5 +1,5 @@
 # The port's own copy of biscotti_tpu/tools/pod_launch.py; it imports nothing of biscotti_tpu.
-# It launches the port's hive and peer CLIs and adds `--platform`, the hives' torch device.
+# It launches the port's hive and peer CLIs and adds `--platform`, their torch device.
 """Multi-host fleet launcher — the reference's Azure run script as a
 single tool (ref: azure/azure-run/runBiscotti.sh: keygen, build, generate
 peersFileSent host:port list, ssh-launch nodesInEachVM processes per VM,
@@ -264,7 +264,8 @@ def peer_cmd(args, node_id, total, peers_file, bind_ip="127.0.0.1"):
            "-nv", str(committee_size(args.num_verifiers, total)),
            "-nn", str(committee_size(args.num_noisers, total)),
            "--max-iterations", str(args.iterations),
-           "--seed", str(args.seed)]
+           "--seed", str(args.seed),
+           "--platform", getattr(args, "platform", "cuda")]
     if getattr(args, "overlay", 0):
         per = args.peers_per_host or args.nodes_per_host
         layout = placement.hive_layout(0, 1, per_host=per)
@@ -289,9 +290,8 @@ def main(argv=None) -> int:
                          "single-box scale wall breaker (docs/HIVE.md)")
     ap.add_argument("--dataset", default="mnist")
     ap.add_argument("--platform", default="cuda",
-                    help="torch device of the hives (hive mode and "
-                         "--supervise): 'cuda' or 'cpu'; per-peer "
-                         "processes run the peer CLI, on the GPU")
+                    help="torch device of the launched peers and hives: "
+                         "'cuda' or 'cpu'")
     ap.add_argument("--base-port", type=int, default=14350)
     ap.add_argument("--iterations", type=int, default=5)
     ap.add_argument("--secure-agg", type=int, default=0)
@@ -342,11 +342,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     hosts = read_hosts(args.hosts)
-    if args.platform != "cuda" and not (args.peers_per_host
-                                        or args.supervise):
-        print("[pod] --platform applies to hives; the peer CLI runs "
-              "on the GPU: add --peers-per-host", file=sys.stderr)
-        return 2
     if args.supervise:
         return supervise(args, hosts)
     per_host = args.peers_per_host or args.nodes_per_host

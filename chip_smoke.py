@@ -156,18 +156,38 @@ printed as one JSON line:
               kernel count, every peer's delta held to its standalone
               Trainer's on the card (rtol 1e-4); (c) a Hive of 528 mnist
               softmax peers, 1 verifier, 1 miner, 1 noiser, plain mode with
-              KRUM, 2 rounds: the verifier's pool of 526 updates lies in
+              KRUM, 1 round: the verifier's pool of 526 updates lies in
               B1's window, so B1 scores it inside the live round (its
               launch count must rise), then B1 on that pool against its
               plain version (accept sets equal, rtol 1e-4) and timed as in
               phase 3; (d) a single-device BatchStepper cluster of 8 mnist
               peers, 2 rounds. Each cell: chains equal, every round a
               non-empty block;
+  drivers     the eval drivers and the reference bench's other entries
+              on the card, each through its entry point: (a)
+              `eval.eval_krum_kernel` at n = 128 .. 8192 (d = 7,850, the
+              reference's inputs, f = n // 2), B1 through its wrapper at
+              every n against the plain path (accept sets equal, rtol
+              1e-4), the kernel alone, the wrapper, the plain path and the
+              cuBLAS Gram timed and the bound; (b) `eval.eval_sim_scale` at
+              N = 100, 256, 512, 1024 (mnist softmax, 10 rounds): s/iter,
+              the scan's device ms and idle share, B1 once a round at
+              N = 1024 (S = 716) and never below; (c) the bench's
+              crypto-kernel entry at widths 8, 35, 100, the card's msm =
+              the native one, B2's launches counted; (d) its migration
+              entry at N = 100, 2 iterations (a move, chains equal); (e)
+              one attack-matrix cell, hug × KRUM, at the matrix's operating
+              point (mnist@dir0.3, 10 nodes, 3 verifiers, 8 rounds),
+              chains equal; (f) one straggler row, 20 % slowed with
+              adaptive deadlines, chains equal; (g) `eval.local_test`: 4
+              processes of the port's peer CLI on the card, 2 iterations,
+              dumps equal byte for byte;
   6. kernels  one line for every ported kernel (B1's launches from phases
-              4, defenses, cnn, ledger and hive (c), with its times at
-              (716, 164266) and at the hive's live pool beside those at
-              (716, 7850); B2's from the crypto and secagg phases' intakes
-              and the live miners' folds).
+              4, defenses, cnn, ledger, hive (c) and drivers (a) and (b),
+              with its times at (716, 164266), at the hive's live pool and
+              at each committee size of drivers (a) beside those at
+              (716, 7850); B2's from the crypto and secagg phases' intakes,
+              the live miners' folds and drivers (c)).
 
 Then the card's `name, power.limit` line as nvidia-smi prints it (the line
 the run's records are keyed by) and, last, the device JSON. Any
@@ -187,18 +207,13 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-# published peaks of one H100 SXM (NVIDIA data sheet) at its 700 W limit:
-# fp32 FLOP/s outside the tensor cores, dense TF32 on the tensor cores, HBM
-# bytes/s
-PEAK_FP32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_BYTES_PER_S = 3.35e12
-# the pipes a Krum Gram can run on: (products a dot product needs there,
-# peak FLOP/s). csrc/krum_scores.cu runs on the fp32 FMA pipe; a 3xTF32
-# Gram on the tensor pipe (hi.hi + hi.lo + lo.hi) is its yardstick
-KRUM_PIPES = {"fp32_fma": (1, PEAK_FP32_FLOPS),
-              "tf32x3_tensor": (3, PEAK_TF32_FLOPS)}
-KRUM_PIPE = "fp32_fma"
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+# B1's timing (CUDA events), bound and accept-set helpers live in the Krum
+# kernel driver, which times B1 across committee sizes with the same code;
+# the H100's published peaks come with them
+from biscotti_tpu_torch.eval.eval_krum_kernel import (  # noqa: E402
+    PEAK_BYTES_PER_S, PEAK_FP32_FLOPS, RTOL, accept_set, krum_times, rel_err,
+    time_ms)
 # the integer pipes of one H100 SXM: 132 SMs at 1.98 GHz, the clock behind
 # the data sheet's fp32 figure (67e12 / (132 SMs × 128 lanes × 2)); per SM
 # and clock, 64 lanes of 32-bit integer results on each of the FMA pipe
@@ -215,9 +230,7 @@ EITHER_PIPE = {"VIADD"}
 NOT_COUNTED = {"MOV", "LDC", "LDG", "STG", "S2R", "CS2R", "EXIT", "BRA", "NOP",
                "HFMA2", "BSSY", "BSYNC"}
 KERNEL_SHAPES = [(8, 16), (130, 50), (716, 7850), (1024, 7850), (4096, 7850)]
-RTOL = 1e-4
 EXACT_SLACK = 1.1
-REPS = 20
 # the VSS intake at the bench's mnist secure-aggregation width
 # (bench.py:849-858: N = 100, sample_percent 0.70; config.py:170)
 CHUNKS, POLY = 785, 10  # C chunks of k coefficients: d = 7,850
@@ -235,51 +248,36 @@ LIVE_ARMED_PEERS = 4
 LIVE_BASE_PORT = 17500
 # the hive phase: (a) the reference's density entry at N = 100 (its CLI's
 # default ports, 8000 + id), (b) 100 mnist_cnn peers, (c) N = 528, whose
-# verifier pools 526 updates, inside B1's 512..4096 window, (d) a
+# verifier pools 526 updates, inside B1's 512..4096 window, for one round
+# (two until the drivers phase joined the script: each round is ~40 s of
+# host time, and the script aims at half its 1200 s limit), (d) a
 # single-device BatchStepper cluster
 HIVE_DENSITY_N = 100
 HIVE_CNN_N = 100
 HIVE_POOL_N = 528
-HIVE_POOL_ROUNDS = 2
+HIVE_POOL_ROUNDS = 1
 HIVE_CLUSTER_N = 8
 HIVE_BASE_PORT = 18000
+# the drivers phase: (a) eval_krum_kernel's committee sizes at mnist
+# softmax's d, the reference's default four (512..4096) and one more
+# octave each side of B1's window; (b) eval_sim_scale's default sizes,
+# whose N = 1024 (S = 716) alone lies in the window; (c) the crypto
+# entry's widths (bench.py:520); (d)-(f) live clusters on the bench
+# entries' own ports, below the ephemeral range (an outbound socket of an
+# earlier cluster in this process squatted 19110 on the card), (g) from
+# DRIVERS_LOCAL_PORT
+DRIVER_KRUM_SIZES = (128, 256, 512, 1024, 2048, 4096, 8192)
+DRIVER_KRUM_D = 7850
+DRIVER_SIM_SIZES = (100, 256, 512, 1024)
+DRIVER_SIM_ROUNDS = 10
+DRIVER_MSM_WIDTHS = (8, 35, 100)
+DRIVER_MIGRATION_N = 100
+DRIVER_LOCAL_PEERS = 4
+DRIVERS_LOCAL_PORT = 14600
 
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
-
-
-def time_ms(fn, reps: int = REPS) -> float:
-    """Median device time of one call, by CUDA events around each call."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def krum_bound(n: int, d: int, pipe: str = KRUM_PIPE):
-    """(ms, what bounds it): the least time for the scores of x[n, d] on
-    `pipe` (KRUM_PIPES), the larger of its operations over its peak and x
-    read once plus the scores written once over the memory rate. The
-    operations are those of the n(n-1)/2 distinct off-diagonal dot products
-    (D is symmetric), 2·d each: n(n-1)·d, three times over for a 3xTF32
-    Gram. The kernel computes the upper Gram tiles only, the diagonal ones
-    whole."""
-    passes, peak = KRUM_PIPES[pipe]
-    ops_ms = 1e3 * passes * n * (n - 1) * d / peak
-    bytes_ms = 1e3 * 4.0 * (n * d + n) / PEAK_BYTES_PER_S
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def oncurve_bound(n: int, mix):
@@ -372,77 +370,12 @@ def krum_scores_fp64(x, num_adversaries: int):
     return torch.sort(d, dim=-1).values[:, :k].sum(dim=-1)
 
 
-def krum_times(x, num_adversaries: int) -> dict:
-    """Kernel B1 at x[n, d]: the wrapper's time, the kernel's alone (the C
-    interface called directly on scratch allocated once, with sq computed
-    once: three CUDA kernels, each one's device time from torch.profiler),
-    the plain version's and the fp32 cuBLAS Gram x @ x.T's (CUDA events,
-    median of REPS); its bound on the pipe it runs on and a 3xTF32
-    tensor-core Gram's; and whether two calls, and the direct launch, agree
-    bit for bit."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from biscotti_tpu_torch import _build
-    from biscotti_tpu_torch.ops import krum_cuda
-
-    n, d = x.shape
-    f, k = num_adversaries, n - num_adversaries - 2
-    kern, lib = krum_cuda.krum_scores_kernel, _build.load("krum_scores")
-    ws = krum_cuda.workspace(n, d, x.device)
-    sq = (x * x).sum(dim=-1)
-    out = torch.empty(n, dtype=torch.float32, device=x.device)
-    first = kern(x, f)
-    rc = krum_cuda.launch(lib, x, sq, out, ws, k)
-    torch.cuda.synchronize()
-    if rc != 0:
-        raise AssertionError(f"krum kernel's direct launch failed: {rc}")
-    row = {"splits": ws["splits"],
-           "bit_identical": bool(torch.equal(first, kern(x, f))),
-           "direct_launch_equal": bool(torch.equal(out, first)),
-           "ms": time_ms(lambda: kern(x, f)),
-           "kernel_only_ms": time_ms(
-               lambda: krum_cuda.launch(lib, x, sq, out, ws, k)),
-           "plain_ms": time_ms(lambda: krum_cuda.krum_scores_plain(x, f)),
-           "gram_cublas_ms": time_ms(lambda: x @ x.T)}
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            krum_cuda.launch(lib, x, sq, out, ws, k)
-        torch.cuda.synchronize()
-    # per recorded launch: the profiler may not record all 5
-    parts = {part: [e for e in prof.key_averages()
-                    if f"krum_{part}_kernel" in e.key]
-             for part in ("pad", "gram", "select")}
-    row["kernel_parts_ms"] = {
-        part: sum(e.self_device_time_total for e in evs) / 1e3
-        / max(1, sum(e.count for e in evs)) for part, evs in parts.items()}
-    row["kernel_parts_recorded"] = {part: sum(e.count for e in evs)
-                                    for part, evs in parts.items()}
-    row["bound_ms"], row["bound_by"] = krum_bound(n, d)
-    row["bound_pipe"] = KRUM_PIPE
-    row["tf32x3_tensor_bound_ms"] = krum_bound(n, d, "tf32x3_tensor")[0]
-    if not (row["bit_identical"] and row["direct_launch_equal"]):
-        raise AssertionError(f"krum kernel is not bit-identical from call to "
-                             f"call at ({n}, {d}): {row}")
-    return row
-
-
 def boundary_rel_gap(ref, keep: int) -> float:
     """The relative gap of the plain scores at the accept boundary."""
     import torch
 
     s = torch.sort(ref).values
     return float((s[keep] - s[keep - 1]) / s[keep])
-
-
-def rel_err(got, ref) -> float:
-    return float(((got - ref).abs() / (ref.abs() + 1e-6)).max())
-
-
-def accept_set(scores, keep: int):
-    from biscotti_tpu_torch.ops.krum import rank_scores
-
-    return set(rank_scores(scores)[:keep].tolist())
 
 
 def nonfinite_case(case: str, x, num_adversaries: int) -> dict:
@@ -1654,10 +1587,13 @@ def live_phase() -> dict:
                      **secagg)
     emit("live", **w)
     # (b): the armed plane settles a 7,850-point intake in ~4-5 s on the
-    # card (PERF.md §5), and each peer's prewarm runs the ladders once
-    # more, so its deadlines are several of those
-    armed = dict(update_s=40.0, block_s=120.0, krum_s=40.0, share_s=40.0,
-                 rpc_s=40.0)
+    # card (PERF.md §5), each peer's prewarm runs the ladders once more,
+    # and four peers' ladders share one GIL: the round took 105-134 s on
+    # the H100, and at 120 s of block window one run lost its block to the
+    # empty-block timer. These windows cost nothing when no deadline is
+    # reached
+    armed = dict(update_s=120.0, block_s=300.0, krum_s=120.0, share_s=120.0,
+                 rpc_s=120.0)
     os.environ["BISCOTTI_PALLAS_CRYPTO"] = "1"
     kernels.reset_counters()
     cv.oncurve_mask.launches = 0
@@ -1902,6 +1838,122 @@ def hive_phase(dev) -> dict:
     return {"b1_launches": c["b1_launches"],
             "live_pool_kernel": c["b1_on_the_live_pool"],
             "seconds": time.perf_counter() - t_phase}
+
+
+def drivers_phase(dev) -> dict:
+    """The slice-8 drivers on the card, cells (a)-(g) of the module
+    docstring, each through the entry point a user calls; returns B1's
+    launches in (a) and (b) and B2's in (c)."""
+    import torch
+
+    from biscotti_tpu_torch import bench
+    from biscotti_tpu_torch.config import Defense
+    from biscotti_tpu_torch.crypto.kernels import cuda_validate as cv
+    from biscotti_tpu_torch.eval import eval_krum_kernel, eval_sim_scale
+    from biscotti_tpu_torch.ops import krum_cuda
+
+    kern = krum_cuda.krum_scores_kernel
+    platform = dev.type
+    t_phase = time.perf_counter()
+
+    # (a) B1 against the plain path across committee sizes
+    t0 = time.perf_counter()
+    kern.launches = 0
+    rows = eval_krum_kernel.run(DRIVER_KRUM_SIZES, DRIVER_KRUM_D, dev)
+    a_launches = kern.launches
+    for r in rows:
+        emit("drivers", cell="krum_kernel", **r)
+    emit("drivers", cell="krum_kernel_done",
+         seconds=time.perf_counter() - t0, b1_launches=a_launches)
+    bad = [r for r in rows if not r["agree"]]
+    if bad:
+        raise AssertionError(f"B1 differs from the plain path: {bad}")
+
+    # (b) the simulator's scale sweep; B1 once a round at N = 1024 only
+    t0 = time.perf_counter()
+    kern.launches = 0
+    sim_rows = eval_sim_scale.run("mnist", DRIVER_SIM_SIZES, DRIVER_SIM_ROUNDS,
+                                  dev)
+    b_launches = kern.launches
+    for r in sim_rows:
+        emit("drivers", cell="sim_scale", **r)
+    emit("drivers", cell="sim_scale_done",
+         seconds=time.perf_counter() - t0, b1_launches=b_launches)
+    for r in sim_rows:
+        in_window = (krum_cuda.KERNEL_MIN_N <= r["contributors_per_round"]
+                     <= krum_cuda.KERNEL_MAX_N)
+        want = DRIVER_SIM_ROUNDS if r["nodes"] == 1024 else 0
+        if r["krum_launches"] != want or in_window != (want > 0):
+            raise AssertionError(f"sim_scale N={r['nodes']}: B1 launched "
+                                 f"{r['krum_launches']} times, not {want}")
+        if not (0.0 <= r["final_error"] < 0.9 and r["mean_accepted"] > 0):
+            raise AssertionError(f"sim_scale N={r['nodes']}: {r}")
+
+    # (c) the crypto-kernel entry: the card's msm = the native one
+    t0 = time.perf_counter()
+    b2_before = cv.oncurve_mask.launches
+    crypto = bench.bench_crypto_kernel(DRIVER_MSM_WIDTHS, device=dev)
+    c_b2 = cv.oncurve_mask.launches - b2_before
+    emit("drivers", cell="crypto_kernel", seconds=time.perf_counter() - t0,
+         b2_launches=c_b2, **crypto)
+    if not all(r["results_equal"] for r in crypto.values()):
+        raise AssertionError(f"the card's msm differs from the native: {crypto}")
+
+    # (d) the migration entry at N = 100
+    t0 = time.perf_counter()
+    mig = bench.bench_migration(n=DRIVER_MIGRATION_N, iterations=2,
+                                device=dev)
+    emit("drivers", cell="migration", seconds=time.perf_counter() - t0, **mig)
+    if not (mig.get("moves", 0) >= 1 and mig["chains_equal"]
+            and "migration_downtime_s" in mig and "migration_bytes" in mig):
+        raise AssertionError(f"migration entry: {mig}")
+
+    # (e) one attack cell, hug × KRUM, at the matrix's operating point
+    t0 = time.perf_counter()
+    attack = bench.bench_attack_matrix(device=dev,
+                                       cells=(("hug", Defense.KRUM),))
+    emit("drivers", cell="attack_matrix", seconds=time.perf_counter() - t0,
+         point=bench.ATTACK_POINT, **attack)
+    cell = attack.get("hug_krum", {})
+    if not (attack["complete"] and cell.get("chains_equal")):
+        raise AssertionError(f"attack cell hug x KRUM: {attack}")
+
+    # (f) one straggler row: 20 % slowed, adaptive deadlines
+    t0 = time.perf_counter()
+    plan, seed = bench.plan_for(0.20, 10)
+    row = bench.straggler_case(plan, True, bench.STRAGGLER_PORT, n=10,
+                               rounds=3, device=dev)
+    emit("drivers", cell="straggler_slow20_adaptive",
+         seconds=time.perf_counter() - t0, slow_seed=seed,
+         slowed_peers=sorted(plan.slow_table(10)), **row)
+    if not (row["chains_equal"] and row["real_blocks"] >= 1):
+        raise AssertionError(f"straggler row: {row}")
+
+    # (g) the local harness: peer processes of the port's CLI on the card
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "biscotti_tpu_torch.eval.local_test",
+         "--nodes", str(DRIVER_LOCAL_PEERS), "--max-iterations", "2",
+         "--convergence-error", "0", "--base-port", str(DRIVERS_LOCAL_PORT),
+         "--timeout", "240", "--platform", platform],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    local = next((json.loads(l) for l in reversed(proc.stdout.splitlines())
+                  if l.startswith("{")), None)
+    emit("drivers", cell="local_test", seconds=time.perf_counter() - t0,
+         rc=proc.returncode, summary=local,
+         stderr_tail=proc.stderr.splitlines()[-5:])
+    if not (proc.returncode == 0 and local and local["chains_equal"]
+            and local["blocks"] > 0 and local["device"] != "cpu"):
+        raise AssertionError(f"local_test: rc {proc.returncode}, {local}")
+
+    torch.cuda.synchronize()
+    emit("drivers", cell="done", seconds=time.perf_counter() - t_phase,
+         b1_launches={"krum_kernel": a_launches, "sim_scale": b_launches},
+         b2_launches_crypto_kernel=c_b2)
+    return {"b1_krum_kernel": a_launches, "b1_sim_scale": b_launches,
+            "b2_crypto_kernel": c_b2,
+            "krum_by_n": {r["n"]: r for r in rows}}
 
 
 def main() -> int:
@@ -2166,6 +2218,9 @@ def main() -> int:
     # hive: slice 7, co-hosted port peers on the card -----------------------
     hive = hive_phase(dev)
 
+    # drivers: slice 8, the eval drivers and the bench's other entries ------
+    drivers = drivers_phase(dev)
+
     # 6. kernels ----------------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "krum_scores", "route": "cuda",
@@ -2173,12 +2228,15 @@ def main() -> int:
         "replaces": "biscotti_tpu/ops/krum_pallas.py:72",
         "launches": (main_launches + defenses["b1_launches"]
                      + cnn["b1_launches"] + ledger["b1_launches"]
-                     + hive["b1_launches"]),
+                     + hive["b1_launches"] + drivers["b1_krum_kernel"]
+                     + drivers["b1_sim_scale"]),
         "launches_by_phase": {"main": main_launches,
                               "defenses": defenses["b1_launches"],
                               "cnn": cnn["b1_launches"],
                               "ledger": ledger["b1_launches"],
-                              "hive": hive["b1_launches"]},
+                              "hive": hive["b1_launches"],
+                              "drivers_krum_kernel": drivers["b1_krum_kernel"],
+                              "drivers_sim_scale": drivers["b1_sim_scale"]},
         "max_abs_err": main_kernel["max_abs_err"],
         "ms": main_kernel["ms"], "plain_ms": main_kernel["plain_ms"],
         "bound_ms": main_kernel["bound_ms"], "bound_by": main_kernel["bound_by"],
@@ -2191,15 +2249,20 @@ def main() -> int:
         "at_the_hive_live_pool": {k: hive["live_pool_kernel"][k] for k in (
             "n", "d", "max_abs_err", "ms", "kernel_only_ms", "plain_ms",
             "gram_cublas_ms", "bound_ms", "bound_by",
-            "accept_set_identical")}}, {
+            "accept_set_identical")},
+        "by_committee_size": {n: {k: r[k] for k in (
+            "kernel_ms", "kernel_only_ms", "plain_ms", "gram_cublas_ms",
+            "bound_ms", "bound_by", "max_abs_err", "max_rel_err",
+            "accept_set_equal")} for n, r in drivers["krum_by_n"].items()}}, {
         "name": "oncurve_validate", "route": "cuda",
         "source": "biscotti_tpu_torch/csrc/oncurve.cu",
         "replaces": "biscotti_tpu/crypto/kernels/pallas_validate.py:34",
         "launches": (crypto["oncurve_launches"] + secagg["b2_launches"]
-                     + live["b2_launches"]),
+                     + live["b2_launches"] + drivers["b2_crypto_kernel"]),
         "launches_by_phase": {"crypto": crypto["oncurve_launches"],
                               "secagg": secagg["b2_launches"],
-                              "live": live["b2_launches"]},
+                              "live": live["b2_launches"],
+                              "drivers": drivers["b2_crypto_kernel"]},
         "max_abs_err": b2["max_abs_err"],
         "ms": b2["ms"], "plain_ms": b2["plain_ms"],
         "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],

@@ -59,9 +59,25 @@ def test_port_modules_import_without_jax_or_reference():
         "tools.pod_launch", "tools.profile_round", "tools.soak",
         "tools.chaos", "tools.verdicts")}
     assert slice7 <= set(mods), slice7 - set(mods)
+    slice8 = {"biscotti_tpu_torch.eval." + m for m in (
+        "eval_sim_scale", "eval_krum_kernel", "eval_poison",
+        "eval_privacy_utility", "eval_inversion", "scale_test",
+        "eval_cost_breakdown", "eval_ft", "eval_attack_matrix", "local_test",
+        "eval_os_faults", "eval_committee_scale", "eval_fedsys_compare",
+        "eval_pod_launch", "parse_logs")}
+    assert slice8 <= set(mods), slice8 - set(mods)
+    ref_eval = {"biscotti_tpu_torch.eval." + f[:-3]
+                for f in os.listdir(os.path.join(REPO, "eval"))
+                if f.endswith(".py")}
+    assert ref_eval == slice8  # one port driver a reference script
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
+        "from biscotti_tpu_torch import bench\n"
+        "assert [e.__name__ for _, e in bench.ENTRIES.values()] == "
+        "['bench_straggler_degradation', 'bench_attack_matrix', "
+        "'bench_migration', 'bench_crypto_kernel']\n"
+        "bench.plan_for(0.2, 10); bench.msm_scalars(3)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'biscotti_tpu' "
         "or m.startswith('biscotti_tpu.'))\n"

@@ -6,8 +6,12 @@ on one seed (the packages share the wire format, quantization and
 commitments, so any chain split in a mixed cluster is a port fault), and
 the verifier seam held to the reference's accept sets pool by pool.
 
-Timeouts are the reference's FAST set (tests/test_runtime.py); ports are
-17100-17299, which no other test file uses."""
+Every live cluster here, port and reference agents alike, runs on one set
+of windows, WINDOWS: under a loaded test run a cold first `sgd` on the CPU
+took ~3 s of the reference's FAST update window (4 s, tests/test_runtime.py)
+and left round 0's block empty. WINDOWS leave every peer its round and
+cost nothing when no deadline is reached. Ports are 17100-17299, which no
+other test file uses."""
 
 import asyncio
 
@@ -27,7 +31,8 @@ from biscotti_tpu_torch.runtime import peer as ppeer
 from biscotti_tpu_torch.runtime import placement as pplace
 from biscotti_tpu_torch.runtime.peer import PeerAgent, RoundState
 
-FAST = dict(update_s=4.0, block_s=20.0, krum_s=4.0, share_s=4.0, rpc_s=6.0)
+WINDOWS = dict(update_s=20.0, block_s=60.0, krum_s=20.0, share_s=20.0,
+               rpc_s=20.0)
 SECAGG = dict(secure_agg=True, noising=True, verification=True, epsilon=1.0)
 
 
@@ -41,7 +46,7 @@ def _kw(i, n, port, **extra):
     return base
 
 
-def _port_cfg(kw, timeouts=FAST):
+def _port_cfg(kw, timeouts=WINDOWS):
     kw = dict(kw)
     if "defense" in kw:
         kw["defense"] = Defense(kw["defense"])
@@ -52,10 +57,10 @@ def _ref_cfg(kw):
     kw = dict(kw)
     if "defense" in kw:
         kw["defense"] = JDefense(kw["defense"])
-    return JConfig(timeouts=JTimeouts(**FAST), **kw)
+    return JConfig(timeouts=JTimeouts(**WINDOWS), **kw)
 
 
-def _cluster(n, port, ref_ids=(), timeouts=FAST, **extra):
+def _cluster(n, port, ref_ids=(), timeouts=WINDOWS, **extra):
     """Run n peers to the end; ids in `ref_ids` are the reference's
     agents, the rest the port's on the CPU. Returns the run() results."""
     async def go():
@@ -227,13 +232,6 @@ def test_port_agent_survives_hostile_rpcs_and_still_serves():
     assert "blocks" in meta
 
 
-# The traced cluster's deadlines: under a loaded test run a cold first
-# `sgd` on the CPU took ~3 s of FAST's 4 s update window; these leave every
-# peer its round, and cost nothing when no deadline is reached.
-TRACED = dict(update_s=20.0, block_s=60.0, krum_s=20.0, share_s=20.0,
-              rpc_s=20.0)
-
-
 def test_traced_port_cluster_reconstructs_complete_rounds(tmp_path):
     """trace=True on an all-port cluster with event logs: the JSONL
     spills of the port's flight recorders reconstruct, through the
@@ -246,7 +244,7 @@ def test_traced_port_cluster_reconstructs_complete_rounds(tmp_path):
     n, port = 4, 17186
 
     async def go():
-        agents = [PeerAgent(_port_cfg(_kw(i, n, port, trace=True), TRACED),
+        agents = [PeerAgent(_port_cfg(_kw(i, n, port, trace=True)),
                             log_path=str(tmp_path / f"events_{i}.jsonl"),
                             device="cpu") for i in range(n)]
         return await asyncio.gather(*(a.run() for a in agents))

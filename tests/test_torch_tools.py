@@ -251,7 +251,8 @@ def test_pod_launch_pure_functions_equal_the_reference(tmp_path):
     assert [x for x in got[3:] if x not in ("--platform", "cpu")] == want[3:]
     got = pod.peer_cmd(args, 5, 12, "p.txt", "0.0.0.0")
     want = jpod.peer_cmd(args, 5, 12, "p.txt", "0.0.0.0")
-    assert got[2] == "biscotti_tpu_torch.runtime.peer" and got[3:] == want[3:]
+    assert got[2] == "biscotti_tpu_torch.runtime.peer"
+    assert [x for x in got[3:] if x not in ("--platform", "cpu")] == want[3:]
     ok = {"chains_equal_local": True, "chain_digest": "ab"}
     texts = ["noise\n" + json.dumps(ok), "{broken\n", "", json.dumps(ok) + "\n{"]
     for t in texts:
@@ -272,8 +273,10 @@ def test_pod_launch_dry_run_plans_the_port_processes(tmp_path, capsys):
     assert "biscotti_tpu_torch.runtime.hive" in out and "--platform cpu" in out
     assert "JAX_PLATFORMS" not in out and "[scp]" in out and "[ssh]" in out
     assert json.loads(out.splitlines()[-1])["hive_mode"] is True
-    # per-peer processes run the port's peer CLI, which runs on the GPU
-    assert pod.main(argv[:2] + argv[4:] + ["--platform", "cpu"]) == 2
+    # per-peer processes run the port's peer CLI on the same platform
+    assert pod.main(argv[:2] + argv[4:] + ["--platform", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "biscotti_tpu_torch.runtime.peer" in out and "--platform cpu" in out
 
 
 def test_pod_launch_runs_two_port_hives_on_the_cpu(tmp_path, capsys):
