@@ -31,8 +31,15 @@ Every function here is plain numpy on the host, exact int64 (share values
 reach ~10¹³ for degree-9 chunks at PRECISION=4), as the reference's host
 path is; `quantize` also takes a torch tensor. The one device seam is
 `recover_coeffs`, which runs its interpolation matmul on the armed crypto
-plane (`kernels.shamir_recover`); a device fault there raises. The
-reference's mesh-sharded variant (`make_sharded_share_fns`) is not ported.
+plane (`kernels.shamir_recover`); a device fault there raises.
+
+`make_sharded_share_fns` is the reference's chunk-sharded variant on a
+`torch.distributed` mesh (`parallel/mesh.py`): each rank runs the three
+array programs on its slice of the chunk axis, on its device, and one
+all-gather returns the whole array. There is no int64 matmul on CUDA, so
+shares are k exact int64 multiply-adds; recovery uses the host path's
+memoized pseudo-inverse in float64, so all three agree bit for bit with the
+host path.
 """
 
 from __future__ import annotations
@@ -343,3 +350,73 @@ def reshare_recover_rows(sub: np.ndarray, xs_new,
                          "polynomial (corrupt or mismatched deal)")
     out = np.array([int(v) // den for v in coef[0]], dtype=np.int64)
     return out.reshape(r, c)
+
+
+# ----------------------------------------------------- chunk-axis sharding
+#
+# The chunk axis is embarrassingly parallel: share generation, aggregation
+# and each chunk's least-squares recovery touch no other chunk, so the
+# bodies need no collective; each function still returns the whole array
+# (the reference's shard_map out_specs), which is one all-gather along the
+# chunk axis.
+
+
+def _shares_kernel(coeffs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """[C, k] coefficients × [S, k] Vandermonde → [S, C] shares, exact in
+    int64 as k multiply-adds (CUDA has no int64 matmul)."""
+    out = torch.zeros(v.shape[0], coeffs.shape[0], dtype=torch.int64,
+                      device=coeffs.device)
+    for j in range(v.shape[1]):
+        out += v[:, j, None] * coeffs[None, :, j]
+    return out
+
+
+def _agg_kernel(peer_shares: torch.Tensor) -> torch.Tensor:
+    return peer_shares.sum(dim=0)
+
+
+def _recover_kernel(agg: torch.Tensor, pinv: torch.Tensor) -> torch.Tensor:
+    """float64 least squares per chunk through the pseudo-inverse [k, S],
+    rounded back to int64: [S, C] → [C, k]."""
+    return torch.round(pinv @ agg.to(torch.float64)).T.to(torch.int64)
+
+
+def make_sharded_share_fns(mesh, axis: str = "chunks",
+                           poly_size: int = POLY_SIZE,
+                           total_shares: int = 2 * POLY_SIZE):
+    """The share pipeline sharded over the chunk axis of a 1-D mesh named
+    `axis` (ref: secretshare.py:416-454). Returns (make_shares_sh,
+    aggregate_sh, recover_coeffs_sh):
+
+        make_shares_sh(coeffs [C,k] int64)        -> [S, C] shares
+        aggregate_sh(peer_shares [P,S,C])         -> [S, C]
+        recover_coeffs_sh(agg [S,C], xs [S])      -> [C, k]
+
+    Inputs are numpy arrays or tensors, whole on every rank; outputs are
+    int64 tensors on this rank's device, whole on every rank. C must divide
+    over the mesh (`to_chunks(..., chunk_multiple=ranks)`)."""
+    from biscotti_tpu_torch.parallel.mesh import (all_gather, local_slice,
+                                                 mesh_device)
+
+    if axis not in (mesh.mesh_dim_names or ()):
+        raise ValueError(f"the mesh has no axis {axis!r}: {mesh.mesh_dim_names}")
+    dev = mesh_device(mesh)
+    v = torch.from_numpy(vandermonde(share_xs(total_shares), poly_size)).to(dev)
+
+    def mine(a, dim: int) -> torch.Tensor:
+        a = torch.as_tensor(a, device=dev)
+        return a.narrow(dim, local_slice(mesh, a.shape[dim]).start,
+                        a.shape[dim] // mesh.size())
+
+    def make_sh(coeffs) -> torch.Tensor:
+        return all_gather(mesh, _shares_kernel(mine(coeffs, 0), v), dim=1)
+
+    def agg_sh(peer_shares) -> torch.Tensor:
+        return all_gather(mesh, _agg_kernel(mine(peer_shares, 2)), dim=1)
+
+    def recover_sh(agg, xs) -> torch.Tensor:
+        xs_key = tuple(int(x) for x in np.asarray(xs).reshape(-1))
+        pinv = torch.from_numpy(_vandermonde_pinv(xs_key, poly_size)).to(dev)
+        return all_gather(mesh, _recover_kernel(mine(agg, 1), pinv), dim=0)
+
+    return make_sh, agg_sh, recover_sh

@@ -25,13 +25,20 @@ S·B minibatch rows from it. `run_scan` loops over the rounds with nothing
 read back to the host until the end (the reference compiles that loop into
 one `lax.scan`). Steps and evaluations run inside `fp32_math`, so
 the CNN families' convolutions stay float32 on the card.
+
+Peers-across-devices: `make_sharded_round_step` shards the peer axis over a
+`torch.distributed` mesh (`parallel/mesh.py`), one rank a device; the only
+cross-peer traffic is an all-gather of the [N, d] noised updates for the
+accept mask and a psum of the masked aggregate, as in the reference. Its
+draws (`sharded_draws`) and pure step (`sharded_step_from_draws`) are split
+the same way.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -49,6 +56,8 @@ from biscotti_tpu_torch.ops.robust_agg import (foolsgold_accept_mask,
                                                multikrum_accept_mask,
                                                trimmed_mean_aggregate)
 from biscotti_tpu_torch.ops.roni import roni_accept_mask
+from biscotti_tpu_torch.parallel.mesh import (all_gather, local_slice,
+                                             mesh_device, psum)
 from biscotti_tpu_torch.tools.verdicts import poisoned_ids
 
 
@@ -175,23 +184,30 @@ class Simulator:
             cidx = torch.randperm(n, generator=gen, device=self.device)[:s]
         s = cidx.shape[0]
         batch_idx = sample_batch(gen, self.rows, cfg.batch_size, s)
+        return cidx, batch_idx, self.draw_noise(gen, s), self.draw_keep(gen, it, s)
+
+    def draw_noise(self, gen: torch.Generator, s: int) -> torch.Tensor:
+        """s contributors' DP noise [s, d] from `gen`, already scaled by
+        −α/b (ref: sim.py:185-199); zeros when noising is off."""
+        cfg = self.cfg
         if self._use_noise and cfg.dp_mechanism == "mcmc13":
             # one exact Song&Sarwate'13 row a contributor, scaled as the
             # Gaussian bank is (ref: sim.py:189-199)
-            noise = (-self._noise_alpha / cfg.batch_size) * dp_noise.knorm_draw(
+            return (-self._noise_alpha / cfg.batch_size) * dp_noise.knorm_draw(
                 gen, self._noise_eps, s, self.num_params)
-        elif self._use_noise:
-            noise = dp_noise.round_noise(gen, s, self.num_params,
-                                         self._noise_scale, cfg.batch_size,
-                                         self._noise_alpha)
-        else:
-            noise = torch.zeros(s, self.num_params, device=self.device)
+        if self._use_noise:
+            return dp_noise.round_noise(gen, s, self.num_params,
+                                        self._noise_scale, cfg.batch_size,
+                                        self._noise_alpha)
+        return torch.zeros(s, self.num_params, device=self.device)
+
+    def draw_keep(self, gen: torch.Generator, it: int, s: int) -> torch.Tensor:
+        """keep[s]: False where the fault plan drops a contributor's frame in
+        round `it`, drawn from the fault seed (ref: sim.py:259-266)."""
         if self._drop_p > 0.0:
-            gen.manual_seed(stream_seed(cfg.fault_plan.seed, "drop", it))
-            keep = torch.rand(s, generator=gen, device=self.device) >= self._drop_p
-        else:
-            keep = torch.ones(s, dtype=torch.bool, device=self.device)
-        return cidx, batch_idx, noise, keep
+            gen.manual_seed(stream_seed(self.cfg.fault_plan.seed, "drop", it))
+            return torch.rand(s, generator=gen, device=self.device) >= self._drop_p
+        return torch.ones(s, dtype=torch.bool, device=self.device)
 
     def local_updates(self, w: torch.Tensor, cidx: torch.Tensor,
                       batch_idx: torch.Tensor,
@@ -306,6 +322,98 @@ class Simulator:
             logits = self.model.apply_flat(w.to(self.device), self.x_attack)
         pred = torch.argmax(logits, dim=-1)
         return float((pred == target).to(torch.float32).mean())
+
+
+# ---------------------------------------------------------------- sharded path
+
+
+def sharded_draws(sim: Simulator, it: int, seed: int, gids: Sequence[int]
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Round `it`'s draws on the sharded path for the peers `gids`: each
+    peer's minibatch rows and DP noise from its own stream,
+    `stream_seed(seed, "sharded", it, gid)` (the reference's fold_in(bkey,
+    gid) and fold_in(nkey, gid), sim.py:409-426), so no draw depends on
+    which rank holds the peer; and the fault plane's keep mask over all N
+    peers (sim.py:433-438). Returns (batch_idx[len(gids), B],
+    noise[len(gids), d], keep[N]).
+
+    A peer's rows are `sample_batch`'s: the first B of a uniform random
+    permutation of its shard, the order of its own uniform keys. The keys
+    of all the rank's peers are sorted in one batched, stable argsort,
+    whose every row is that row's own sort."""
+    keys = torch.empty(len(gids), sim.rows, device=sim.device)
+    noise = []
+    for i, gid in enumerate(gids):
+        sim.gen.manual_seed(stream_seed(seed, "sharded", it, gid))
+        torch.rand(sim.rows, generator=sim.gen, out=keys[i])
+        noise.append(sim.draw_noise(sim.gen, 1))
+    idx = torch.argsort(keys, dim=1, stable=True)[:, :min(sim.cfg.batch_size,
+                                                         sim.rows)]
+    return (idx, torch.cat(noise),
+            sim.draw_keep(sim.gen, it, sim.cfg.num_nodes))
+
+
+def sharded_step_from_draws(sim: Simulator, mesh, x_loc: torch.Tensor,
+                            y_loc: torch.Tensor, w: torch.Tensor,
+                            batch_idx: torch.Tensor, noise: torch.Tensor,
+                            keep: torch.Tensor):
+    """One round of the peers-across-devices step from its draws; pure.
+    This rank holds the peers `local_slice(mesh, N)`: their data x_loc,
+    y_loc, their rows batch_idx and noise; keep[N] covers every peer.
+    Every peer contributes (S = N). One all-gather of the [N, d] noised
+    updates; the accept mask over all of them, replicated on every rank
+    (B1 scores the gathered pool inside its window); under TRIMMED_MEAN a
+    second gather (of the raw deltas, or none in dp_in_model mode) and the
+    trimmed aggregate replicated, else this rank's masked sum and one psum
+    (ref: sim.py:428-457). Returns (w_next, mask[N], err), the same on
+    every rank."""
+    cfg, n = sim.cfg, sim.cfg.num_nodes
+    mine = local_slice(mesh, n)
+    rows = torch.arange(x_loc.shape[0], device=x_loc.device)[:, None]
+    with fp32_math():
+        deltas = sim._batched_step(w, x_loc[rows, batch_idx],
+                                   y_loc[rows, batch_idx])
+        noised = deltas + noise
+        all_noised = all_gather(mesh, noised)  # [N, d]
+        mask = defense_mask(sim.defense, sim.model, w, all_noised, sim.x_val,
+                            sim.y_val, cfg.roni_threshold,
+                            default_num_adversaries(n)) & keep
+        if sim.defense == Defense.TRIMMED_MEAN:
+            src = all_noised if cfg.dp_in_model else all_gather(mesh, deltas)
+            agg = masked_aggregate(mask, src, src, cfg.dp_in_model,
+                                   sim.defense, cfg.trim_fraction)
+        else:
+            agg = psum(mesh, masked_aggregate(mask[mine], deltas, noised,
+                                              cfg.dp_in_model))
+        w_next = w + agg
+        err = sim.model.error_flat(w_next, sim.x_val, sim.y_val)
+    return w_next, mask, err
+
+
+def make_sharded_round_step(sim: Simulator, mesh, axis: str = "peers"):
+    """The peers-across-devices round step on a 1-D `DeviceMesh`
+    (`parallel/mesh.py`) named `axis`, one rank a device, the simulator
+    built on this rank's device (ref: sim.py:377-476). This rank's step
+    reads only its peers' rows of sim.x and sim.y, through a view: the
+    Simulator itself holds every peer's shard on each rank (the reference
+    places 1/k of them on each device). Returns
+    `run_step(w, it, seed=None) -> (w_next, mask, err)`, replicated on
+    every rank; `seed` overrides cfg.seed, as on the single-device path."""
+    if axis not in (mesh.mesh_dim_names or ()):
+        raise ValueError(f"the mesh has no axis {axis!r}: {mesh.mesh_dim_names}")
+    if sim.x.device != mesh_device(mesh):
+        raise ValueError(f"the simulator's data is on {sim.x.device}, this "
+                         f"rank's device is {mesh_device(mesh)}")
+    mine = local_slice(mesh, sim.cfg.num_nodes)
+    gids = range(mine.start, mine.stop)
+    x_loc, y_loc = sim.x[mine], sim.y[mine]
+
+    def run_step(w: torch.Tensor, it: int, seed: Optional[int] = None):
+        draws = sharded_draws(sim, it, sim.cfg.seed if seed is None else seed,
+                              gids)
+        return sharded_step_from_draws(sim, mesh, x_loc, y_loc, w, *draws)
+
+    return run_step
 
 
 # ------------------------------------------------------------------- CLI

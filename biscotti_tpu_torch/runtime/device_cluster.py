@@ -23,12 +23,19 @@ Round `it`'s minibatch of peer `gid` is drawn from a generator seeded with
 on those rows, which the tests feed the reference's own draws. Every
 peer's shard is cut to the shortest one's rows, as in the reference.
 
-The reference shards the batch over a device mesh; the port runs it on
-one device, and a mesh of more than one device raises.
+On a `torch.distributed` mesh (`parallel/mesh.py`, one rank a device) the
+batch is sharded over the peer axis, as the reference's `shard_map` shards
+it: rank 0 hosts the agents and `step()`, every rank computes its own
+peers' deltas (rows from the same per-peer streams, so the batch is the
+one-device stepper's), and rank 0 gathers the [N, d] batch
+(`mesh.Controller`); the other ranks `serve()` until rank 0 closes the
+stepper. `run_cluster` runs on every rank: the followers serve and return.
 
 Launcher CLI (`--platform`: the torch device, `cuda` by default, or `cpu`):
     python -m biscotti_tpu_torch.runtime.device_cluster -t 8 -d mnist \\
         --iterations 3
+    torchrun --nproc-per-node 4 -m biscotti_tpu_torch.runtime.device_cluster \\
+        -t 32 -d mnist --iterations 3       # one rank a GPU
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from biscotti_tpu_torch.data import datasets as ds
 from biscotti_tpu_torch.device import resolve_device
@@ -48,6 +56,8 @@ from biscotti_tpu_torch.models.trainer import (_shared_eval_tensors,
                                                local_step_fn, sample_batch,
                                                stream_seed)
 from biscotti_tpu_torch.models.zoo import model_for_dataset
+from biscotti_tpu_torch.parallel.mesh import (Controller, local_slice,
+                                             mesh_device)
 from biscotti_tpu_torch.tools.verdicts import poisoned_ids
 
 
@@ -78,23 +88,30 @@ async def single_flight_memo(cache: Dict, pending: Dict, key, compute):
     return val, True
 
 
-def single_device(mesh=None,
-                  device: Optional[Union[str, torch.device]] = None
-                  ) -> torch.device:
-    """The one device a batched stepper runs on: `device` (None: the GPU,
-    which must exist), or the only device of `mesh`, a sequence of torch
-    devices. A mesh of more than one device raises: the peers-across-
-    devices step of the reference is not ported."""
+def stepper_device(mesh=None,
+                   device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    """The device a batched stepper runs on in this process: `device`
+    (None: the GPU, which must exist) without a mesh; this rank's device
+    on a `DeviceMesh`; the only device of a one-entry list. A list of
+    several devices raises: one process drives one device, and several
+    devices are a `DeviceMesh` of one rank each."""
     if mesh is None:
         return resolve_device(device)
-    devices = [torch.device(d) for d in mesh]
-    if len(devices) != 1:
-        raise NotImplementedError(
-            f"a mesh of {len(devices)} devices: the port's batched steppers "
-            "run on one device (the multi-device step is not ported)")
-    if device is not None and torch.device(device) != devices[0]:
-        raise ValueError(f"device {device} is not the mesh's {devices[0]}")
-    return resolve_device(devices[0])
+    if isinstance(mesh, DeviceMesh):
+        dev = mesh_device(mesh)
+    else:
+        devices = [torch.device(d) for d in mesh]
+        if len(devices) != 1:
+            raise ValueError(
+                f"a list of {len(devices)} devices: a batched stepper spans "
+                "devices as a torch.distributed DeviceMesh, one rank a device "
+                "(biscotti_tpu_torch.parallel.mesh.open_mesh or spawn)")
+        dev = devices[0]
+    if device is not None and torch.device(device) not in (
+            dev, torch.device(dev.type)):
+        raise ValueError(f"device {device} is not the mesh's {dev}")
+    return resolve_device(dev)
 
 
 def vmapped_step(cfg):
@@ -119,21 +136,64 @@ def shared_test_error(model, device: torch.device, cfg, w: np.ndarray) -> float:
         return float(model.error_flat(host_f32(w, device), x_test, y_test))
 
 
-class BatchStepper:
-    """Round-batched SGD: all peers' deltas in one vmapped device call.
+class MeshBatches:
+    """The batch plane the two batched steppers share: round `it`'s deltas
+    of every peer at weights w, computed here, or by every rank of a mesh
+    for its own peers (`_mesh`, a `parallel.mesh.Controller`, None off a
+    mesh) and gathered on rank 0. A stepper supplies `device`,
+    `draw_batches(it)` and `deltas_from_draws(w, idx)` for its own peers."""
+
+    _mesh: Optional[Controller] = None
+
+    def _local(self, it: int, w: torch.Tensor) -> torch.Tensor:
+        return self.deltas_from_draws(w, self.draw_batches(it))
+
+    def deltas(self, it: int, w: np.ndarray) -> torch.Tensor:
+        """Round `it`'s deltas of every peer at weights w, float32 on this
+        device: one device call, or one a rank gathered on rank 0."""
+        w = host_f32(w, self.device)
+        if self._mesh is not None:
+            return self._mesh.dispatch(it, w)
+        return self._local(it, w)
+
+    def serve(self) -> int:
+        """A follower rank's loop: compute this rank's peers' slice of
+        every batch rank 0 issues, until rank 0 closes the stepper.
+        Returns the number of batches served (0 off a mesh)."""
+        return self._mesh.serve() if self._mesh is not None else 0
+
+    def close(self) -> None:
+        """Rank 0: release the follower ranks (once; nothing to do off a
+        mesh)."""
+        if self._mesh is not None:
+            self._mesh.close()
+
+
+class BatchStepper(MeshBatches):
+    """Round-batched SGD: all peers' deltas in one vmapped device call, or
+    one a rank across a `DeviceMesh`.
 
     Thread-compatible with the asyncio agents: `step()` is async and the
     batched call runs in a worker thread. Per-iteration batches are cached
     (keyed by iteration) and evicted once consumed, so memory stays at
-    O(batches_in_flight · N · d)."""
+    O(batches_in_flight · N · d). On a mesh, rank 0 calls `step()` and
+    `close()`, the other ranks `serve()`; each rank holds only its own
+    peers' shards (`gids`)."""
 
     def __init__(self, cfg, mesh=None, axis: str = "peers",
                  device: Optional[Union[str, torch.device]] = None):
         self.cfg = cfg
         self.axis = axis
         self.mesh = mesh
-        self.device = single_device(mesh, device)
+        self.device = stepper_device(mesh, device)
         n = cfg.num_nodes
+        sharded = isinstance(mesh, DeviceMesh)
+        self.gids = range(n)
+        if sharded:
+            if axis not in (mesh.mesh_dim_names or ()):
+                raise ValueError(f"the mesh has no axis {axis!r}")
+            mine = local_slice(mesh, n)
+            self.gids = range(mine.start, mine.stop)
         self.model, self._batched_step, _ = vmapped_step(cfg)
         self.num_params = self.model.num_params
 
@@ -144,11 +204,14 @@ class BatchStepper:
                                   ds.shard_name(cfg.dataset, i, i in poisoned))
             xs.append(shard["x_train"])
             ys.append(shard["y_train"])
+        # every shard cut to the shortest one's rows, over ALL peers
         self.rows = min(len(x) for x in xs)
         self._x = torch.from_numpy(
-            np.stack([x[:self.rows] for x in xs])).to(self.device)
+            np.stack([xs[g][:self.rows] for g in self.gids])).to(self.device)
         self._y = torch.from_numpy(
-            np.stack([y[:self.rows] for y in ys])).to(self.device)
+            np.stack([ys[g][:self.rows] for g in self.gids])).to(self.device)
+        self._mesh = (Controller(mesh, self.num_params, self._local)
+                      if sharded else None)
         self.batch = min(cfg.batch_size, self.rows)
         self._gen = torch.Generator(device=self.device)
         self._gen_lock = threading.Lock()
@@ -168,11 +231,11 @@ class BatchStepper:
         self.evals = 0  # distinct metric computations (observability/tests)
 
     def draw_batches(self, it: int) -> torch.Tensor:
-        """Round `it`'s minibatch rows [N, B] of every peer, peer `gid`'s
-        pure in (cfg.seed, it, gid)."""
+        """Round `it`'s minibatch rows [len(gids), B] of this process's
+        peers, peer `gid`'s pure in (cfg.seed, it, gid)."""
         idx = []
         with self._gen_lock:
-            for gid in range(self.cfg.num_nodes):
+            for gid in self.gids:
                 self._gen.manual_seed(stream_seed(self.cfg.seed, "cluster",
                                                   it, gid))
                 idx.append(sample_batch(self._gen, self.rows, self.batch, 1)[0])
@@ -180,7 +243,8 @@ class BatchStepper:
 
     def deltas_from_draws(self, w: torch.Tensor,
                           idx: torch.Tensor) -> torch.Tensor:
-        """Every peer's step [N, d] on its rows idx[N, B]: pure in (w, idx)."""
+        """The step [len(gids), d] of this process's peers on their rows
+        idx[len(gids), B]: pure in (w, idx)."""
         idx = idx.to(self.device)
         peers = torch.arange(idx.shape[0], device=self.device)[:, None]
         with fp32_math():
@@ -195,9 +259,7 @@ class BatchStepper:
         the whole batch."""
 
         def compute():
-            deltas = self.deltas_from_draws(host_f32(w, self.device),
-                                            self.draw_batches(it))
-            return deltas.cpu().numpy().astype(np.float64)
+            return self.deltas(it, w).cpu().numpy().astype(np.float64)
 
         deltas, computed = await self._memo(self._cache, self._pending, it,
                                             compute)
@@ -234,29 +296,45 @@ class BatchStepper:
 async def run_cluster(cfg_base, mesh, iterations: int, log_dir: str = "",
                       device: Optional[Union[str, torch.device]] = None):
     """Boot N agents sharing one BatchStepper, every agent on the
-    stepper's device; returns (stepper, agents, results)."""
+    stepper's device; returns (stepper, agents, results). On a
+    `DeviceMesh` every rank calls it: rank 0 runs the agents and then
+    releases the others, which serve the batches and return
+    (stepper, [], [])."""
     import os
 
     from biscotti_tpu_torch.runtime.peer import PeerAgent
 
     stepper = BatchStepper(cfg_base, mesh, device=device)
-    agents = []
-    for i in range(cfg_base.num_nodes):
-        cfg = cfg_base.replace(node_id=i, max_iterations=iterations)
-        agents.append(PeerAgent(
-            cfg, stepper=stepper,
-            log_path=os.path.join(log_dir, f"events_{i}.jsonl")
-            if log_dir else "", device=stepper.device))
-    results = await asyncio.gather(*(a.run() for a in agents))
+    if isinstance(mesh, DeviceMesh) and mesh.get_local_rank() != 0:
+        await asyncio.to_thread(stepper.serve)
+        return stepper, [], []
+    try:
+        agents = []
+        for i in range(cfg_base.num_nodes):
+            cfg = cfg_base.replace(node_id=i, max_iterations=iterations)
+            agents.append(PeerAgent(
+                cfg, stepper=stepper,
+                log_path=os.path.join(log_dir, f"events_{i}.jsonl")
+                if log_dir else "", device=stepper.device))
+        results = await asyncio.gather(*(a.run() for a in agents))
+    finally:
+        stepper.close()
     return stepper, agents, results
 
 
 def main(argv=None) -> int:
+    """One-device run, or, under torchrun (its RANK in the environment),
+    one rank of a mesh over every rank's device; rank 0 prints the
+    summary."""
     import argparse
+    import contextlib
     import json
+    import os
+
+    from biscotti_tpu_torch.parallel.mesh import open_mesh
 
     ap = argparse.ArgumentParser(
-        description="peers-as-devices cluster launcher (one device)")
+        description="peers-as-devices cluster launcher")
     from biscotti_tpu_torch.config import BiscottiConfig
 
     BiscottiConfig.add_args(ap)
@@ -267,12 +345,18 @@ def main(argv=None) -> int:
     ns = ap.parse_args(argv)
     cfg = BiscottiConfig.from_args(ns)
 
-    stepper, agents, results = asyncio.run(
-        run_cluster(cfg, None, ns.iterations, device=ns.platform))
+    under_torchrun = "RANK" in os.environ
+    with (open_mesh("peers", ns.platform) if under_torchrun
+          else contextlib.nullcontext()) as mesh:
+        stepper, agents, results = asyncio.run(
+            run_cluster(cfg, mesh, ns.iterations, device=ns.platform))
+        ranks = mesh.size() if mesh is not None else 1
+    if not results:  # a follower rank
+        return 0
     dumps = [r["chain_dump"] for r in results]
     summary = {
         "mode": "peers-as-devices",
-        "devices": 1,
+        "devices": ranks,
         "device": str(stepper.device),
         "nodes": cfg.num_nodes,
         "sharded_batches": stepper.batches,

@@ -28,8 +28,14 @@ share:
 Cross-hive traffic rides the ordinary TCP wire plane, so hives of the
 port and of the reference interoperate frame for frame.
 
-The reference's peers-across-devices step (a `shard_map` over a mesh) is
-not ported: a mesh of more than one device raises.
+On a `torch.distributed` mesh of k > 1 ranks (`parallel/mesh.py`) whose
+size divides H, the delta batch is sharded over the peer axis, as the
+reference's `shard_map` shards it: rank 0 hosts the hive and issues each
+batch, every rank computes its slice of the co-hosted peers, rank 0
+gathers it (`mesh.Controller`), and the other ranks serve it (every
+rank builds the `Hive` and calls `run()`, or the `HiveStepper` and rank 0
+`step()`s while the others `serve()`). Otherwise the batch runs on rank
+0's device alone. The noise draw and the shared test error stay on rank 0.
 
 Launcher CLI (one hive = one process; tools/pod_launch.py spreads many);
 `--platform` names the torch device, `cuda` (the default) or `cpu`:
@@ -55,16 +61,18 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from biscotti_tpu_torch.data import datasets as ds
 from biscotti_tpu_torch.models.base import fp32_math
 from biscotti_tpu_torch.models.trainer import sample_batch, stream_seed
 from biscotti_tpu_torch.ops import dp_noise
+from biscotti_tpu_torch.parallel.mesh import Controller
 from biscotti_tpu_torch.runtime import codecs as wcodecs
-from biscotti_tpu_torch.runtime.device_cluster import (host_f32,
+from biscotti_tpu_torch.runtime.device_cluster import (MeshBatches,
                                                        shared_test_error,
-                                                       single_device,
                                                        single_flight_memo,
+                                                       stepper_device,
                                                        vmapped_step)
 from biscotti_tpu_torch.runtime.rpc import BusyError, RPCError, StaleError
 from biscotti_tpu_torch.tools.verdicts import poisoned_ids
@@ -386,7 +394,7 @@ class UnequalShardsError(ValueError):
     per-agent trainers (slower, exact)."""
 
 
-class HiveStepper:
+class HiveStepper(MeshBatches):
     """Batched device plane for a hive's LOCAL peer subset: all co-hosted
     workers' SGD deltas in one vmapped device call per (iteration,
     weights), DP noise as one [H, d] draw per iteration, and the shared
@@ -405,16 +413,28 @@ class HiveStepper:
     bank: distribution-identical to the bank, O(H·d) resident instead of
     O(H·iters·d).
 
-    Tensors live on the stepper's one device (`device`; None: the GPU,
-    which must exist); results come back to the host as float64 numpy,
-    and the compute runs in `asyncio.to_thread`."""
+    Tensors live on the stepper's device (`device`; None: the GPU, which
+    must exist; on a mesh, this rank's); results come back to the host as
+    float64 numpy, and the compute runs in `asyncio.to_thread`. With a
+    `DeviceMesh` of k > 1 ranks and H % k == 0 the delta batch is sharded
+    (`sharded`): each rank holds and steps its slice `mine` of
+    `local_ids`, rank 0 calls `step()` and `close()`, the others
+    `serve()`."""
 
     def __init__(self, cfg, local_ids: Sequence[int], mesh=None,
                  device: Optional[Union[str, torch.device]] = None):
         self.cfg = cfg
-        self.device = single_device(mesh, device)
+        self.device = stepper_device(mesh, device)
         self.local_ids = sorted(int(i) for i in local_ids)
         self._slot = {pid: i for i, pid in enumerate(self.local_ids)}
+        h = len(self.local_ids)
+        self.sharded = (isinstance(mesh, DeviceMesh) and mesh.size() > 1
+                        and h % mesh.size() == 0)
+        self.mine = self.local_ids
+        if self.sharded:
+            per = h // mesh.size()
+            self.mine = self.local_ids[mesh.get_local_rank() * per:
+                                       (mesh.get_local_rank() + 1) * per]
 
         self.model, self._batched_step, mode = vmapped_step(cfg)
         self.num_params = self.model.num_params
@@ -437,8 +457,9 @@ class HiveStepper:
                 f"co-hosted shards have unequal row counts {sorted(sizes)}; "
                 "batched stepping would break Trainer-parity sampling")
         self.rows = sizes.pop()
-        self._x = torch.from_numpy(np.stack(xs)).to(self.device)
-        self._y = torch.from_numpy(np.stack(ys)).to(self.device)
+        held = [self._slot[pid] for pid in self.mine]
+        self._x = torch.from_numpy(np.stack([xs[i] for i in held])).to(self.device)
+        self._y = torch.from_numpy(np.stack([ys[i] for i in held])).to(self.device)
         self.batch = min(cfg.batch_size, self.rows)
         self._gen = torch.Generator(device=self.device)
         self._gen_lock = threading.Lock()
@@ -469,15 +490,18 @@ class HiveStepper:
         # own await, which would otherwise make hive layouts immune to
         # the slowdown TCP layouts emulate (docs/STRAGGLERS.md)
         self.step_cost_s = 0.0
+        self._mesh = (Controller(mesh, self.num_params, self._local)
+                      if self.sharded else None)
 
     # ------------------------------------------------ draws and pure step
 
     def draw_batches(self, it: int) -> torch.Tensor:
-        """Round `it`'s minibatch rows [H, B] of every co-hosted peer, in
-        `local_ids` order: each the rows its standalone Trainer draws."""
+        """Round `it`'s minibatch rows [len(mine), B] of this rank's
+        co-hosted peers (all H off a mesh), in `local_ids` order: each the
+        rows its standalone Trainer draws."""
         idx = []
         with self._gen_lock:
-            for pid in self.local_ids:
+            for pid in self.mine:
                 self._gen.manual_seed(stream_seed("trainer", self.cfg.seed,
                                                   pid, "batch", it))
                 idx.append(sample_batch(self._gen, self.rows, self.batch,
@@ -486,8 +510,9 @@ class HiveStepper:
 
     def deltas_from_draws(self, w: torch.Tensor,
                           idx: torch.Tensor) -> torch.Tensor:
-        """Every co-hosted peer's step [H, d] on its rows idx[H, B]: pure
-        in (w, idx), float32 on the stepper's device."""
+        """The step [len(mine), d] of this rank's co-hosted peers on their
+        rows idx[len(mine), B]: pure in (w, idx), float32 on the stepper's
+        device."""
         idx = idx.to(self.device)
         peers = torch.arange(idx.shape[0], device=self.device)[:, None]
         with fp32_math():
@@ -538,9 +563,7 @@ class HiveStepper:
 
         def compute():
             t0 = time.perf_counter()
-            out = self.deltas_from_draws(host_f32(wb, self.device),
-                                         self.draw_batches(it))
-            out = out.cpu().numpy().astype(np.float64)
+            out = self.deltas(it, wb).cpu().numpy().astype(np.float64)
             self.step_cost_s = time.perf_counter() - t0
             return out
 
@@ -595,7 +618,11 @@ class Hive:
     Co-hosted peers are made mutually known at construction (caps +
     liveness), so a genesis hive launch skips the O(H²) intra-hive
     hello storm; hellos toward REMOTE peers still run, which is how a
-    late-started hive adopts the cluster's chain."""
+    late-started hive adopts the cluster's chain.
+
+    On a `DeviceMesh` of several ranks every rank builds the Hive with the
+    same arguments: rank 0 hosts the agents, and the others build only the
+    HiveStepper, whose batches their `run()` serves until rank 0's ends."""
 
     def __init__(self, cfg_base, local_ids: Optional[Sequence[int]] = None,
                  mesh=None, key_dir: str = "", log_dir: str = "",
@@ -605,9 +632,11 @@ class Hive:
         from biscotti_tpu_torch.runtime.peer import PeerAgent
 
         self.cfg = cfg_base
-        self.device = single_device(mesh, device)
+        self.device = stepper_device(mesh, device)
         self.local_ids = sorted(local_ids if local_ids is not None
                                 else range(cfg_base.num_nodes))
+        self.follower = (isinstance(mesh, DeviceMesh)
+                         and mesh.get_local_rank() != 0)
         # loopback=False / batch_device=False are the ablation knobs the
         # density bench A/Bs against: full agents talking real TCP in one
         # process — exactly the pre-hive one-agent-per-peer runtime
@@ -617,7 +646,7 @@ class Hive:
         if batch_device:
             try:
                 self.stepper = HiveStepper(cfg_base, self.local_ids,
-                                           device=self.device)
+                                           mesh=mesh, device=self.device)
             except UnequalShardsError as e:
                 # exactness beats batching: per-agent trainers keep the
                 # standalone sampling streams when shards are unequal
@@ -640,7 +669,7 @@ class Hive:
             "rss_drift_bytes": 0, "loop_lag_drift_s": 0.0,
         }
         self.agents: List[PeerAgent] = []
-        for pid in self.local_ids:
+        for pid in [] if self.follower else self.local_ids:
             cfg = cfg_base.replace(node_id=pid)
             self.agents.append(PeerAgent(
                 cfg, key_dir=key_dir, stepper=self.stepper,
@@ -683,11 +712,19 @@ class Hive:
                 drift([l for _, _, l in samples]), 4)
 
     async def run(self) -> List[Dict]:
+        """Every agent's result; a follower rank serves rank 0's batches
+        and returns []."""
+        if self.follower:
+            if self.stepper is not None:
+                await asyncio.to_thread(self.stepper.serve)
+            return []
         mon = asyncio.get_running_loop().create_task(self._monitor())
         try:
             return await asyncio.gather(*(a.run() for a in self.agents))
         finally:
             mon.cancel()
+            if self.stepper is not None:
+                self.stepper.close()
 
 
 def summarize(hive: Hive, results: List[Dict], wall: float,

@@ -182,12 +182,30 @@ printed as one JSON line:
               adaptive deadlines, chains equal; (g) `eval.local_test`: 4
               processes of the port's peer CLI on the card, 2 iterations,
               dumps equal byte for byte;
+  mesh        the multi-device paths on torch.distributed: (a) a
+              one-rank NCCL group on the card, `make_sharded_round_step`
+              at mnist softmax, N = 1,024 (every peer contributes), KRUM,
+              DP ε = 1, batch 10, poison 0.3, a warm-up and 5 timed
+              rounds, B1 once a round on the gathered pool of 1,024; the
+              last round's mask the plain Krum path's on the same pool,
+              w, mask and error the single-device Simulator's on the same
+              draws (cidx = arange(N)) and, over a one-rank gloo group,
+              the CPU port's (rtol 1e-5); host ms a round, the step and
+              the draws alone, the all-gather's and psum's ms, device ms
+              and idle share (torch.profiler), B1 alone, through its
+              wrapper and plain at (1024, 7850); (b) the same at
+              mnist_cnn width (d = 164,266), 3 rounds; (c)
+              `dryrun_multichip(1)` on the card; (d) two ranks of a gloo
+              group on the one card (NCCL takes one rank a GPU), the
+              softmax rounds of (a), masks and w equal to (a)'s; no
+              process group left set up;
   6. kernels  one line for every ported kernel (B1's launches from phases
-              4, defenses, cnn, ledger, hive (c) and drivers (a) and (b),
-              with its times at (716, 164266), at the hive's live pool and
-              at each committee size of drivers (a) beside those at
-              (716, 7850); B2's from the crypto and secagg phases' intakes,
-              the live miners' folds and drivers (c)).
+              4, defenses, cnn, ledger, hive (c), drivers (a) and (b) and
+              mesh (a) and (b), with its times at (716, 164266), at the
+              hive's live pool, at the mesh's gathered pools and at each
+              committee size of drivers (a) beside those at (716, 7850);
+              B2's from the crypto and secagg phases' intakes, the live
+              miners' folds and drivers (c)).
 
 Then the card's `name, power.limit` line as nvidia-smi prints it (the line
 the run's records are keyed by) and, last, the device JSON. Any
@@ -274,6 +292,11 @@ DRIVER_MSM_WIDTHS = (8, 35, 100)
 DRIVER_MIGRATION_N = 100
 DRIVER_LOCAL_PEERS = 4
 DRIVERS_LOCAL_PORT = 14600
+# mesh: the sharded paths on a torch.distributed group (slice 9)
+MESH_N = 1024
+MESH_CELLS = (("softmax", "", 5), ("cnn", "mnist_cnn", 3))  # timed rounds
+MESH_PROFILE_ROUNDS = 2
+MESH_RTOL = 1e-5
 
 
 def emit(phase: str, **fields) -> None:
@@ -1956,6 +1979,219 @@ def drivers_phase(dev) -> dict:
             "krum_by_n": {r["n"]: r for r in rows}}
 
 
+def mesh_cell(mesh, name: str, model_name: str, rounds: int):
+    """(a)/(b): the sharded round on a one-rank NCCL group at N = MESH_N,
+    B1 once a round on the gathered pool, its last round held to the plain
+    Krum mask, the single-device Simulator and (later, on the CPU) the CPU
+    port; returns (row, what the CPU check needs, the per-round trace)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from biscotti_tpu_torch.multichip import sharded_rounds
+    from biscotti_tpu_torch.ops import krum_cuda
+    from biscotti_tpu_torch.ops.krum import (accept_mask,
+                                             default_num_adversaries,
+                                             krum_scores)
+    from biscotti_tpu_torch.parallel import mesh as pm
+    from biscotti_tpu_torch.parallel.sim import (sharded_draws,
+                                                 sharded_step_from_draws)
+
+    kern = krum_cuda.krum_scores_kernel
+    t_cell = time.perf_counter()
+    sim, step, trace, round_ms, launches = sharded_rounds(
+        mesh, model_name, MESH_N, rounds)
+    b1_launches = sum(launches)
+    n, f = MESH_N, default_num_adversaries(MESH_N)
+    it = rounds
+    w_in, w, mask, err = trace[-1]
+    draws = sharded_draws(sim, it, sim.cfg.seed, range(n))
+    _, noised = sim.local_updates(w_in, torch.arange(n, device=w.device),
+                                  draws[0], draws[1])
+    plain_mask = accept_mask(krum_scores(noised, f), n - f)
+    single = sim.round_step_from_draws(w_in, sim.init_state()[1],
+                                       torch.arange(n, device=w.device),
+                                       *draws)
+    again = sharded_step_from_draws(sim, mesh, sim.x, sim.y, w_in, *draws)
+    torch.cuda.synchronize()
+    w_tol = MESH_RTOL * float(single[0].abs().max())
+    gates = {
+        "b1_once_a_round": launches == [1] * rounds,
+        "mask_is_plain_krum": bool(torch.equal(mask, plain_mask)),
+        "mask_is_single_device": bool(torch.equal(mask, single[2])),
+        "w_is_single_device": bool(torch.allclose(w, single[0], rtol=MESH_RTOL,
+                                                  atol=w_tol)),
+        "err_is_single_device": abs(float(err) - float(single[3]))
+        <= MESH_RTOL * abs(float(single[3])),
+        "step_from_draws_is_the_round": bool(
+            torch.equal(again[0], w) and torch.equal(again[1], mask)),
+        "w_finite": bool(torch.isfinite(w).all()),
+        "accepted_n_minus_f": int(mask.sum()) == n - f}
+    got, ref = kern(noised, f), krum_cuda.krum_scores_plain(noised, f)
+    b1 = {"n": n, "d": sim.num_params,
+          "max_abs_err": float((got - ref).abs().max()),
+          "max_rel_err": rel_err(got, ref),
+          "accept_set_identical": accept_set(got, n - f) == accept_set(ref, n - f),
+          **krum_times(noised, f)}
+    gather_ms = time_ms(lambda: pm.all_gather(mesh, noised))
+    psum_ms = time_ms(lambda: pm.psum(mesh, w))
+    step_ms = time_ms(lambda: sharded_step_from_draws(
+        sim, mesh, sim.x, sim.y, w_in, *draws))
+    draws_ms = time_ms(lambda: sharded_draws(sim, it, sim.cfg.seed, range(n)))
+    pw = w
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for pit in range(it + 1, it + 1 + MESH_PROFILE_ROUNDS):
+            pw, _, _ = step(pw, pit)
+        torch.cuda.synchronize()
+    prof_host_ms = 1e3 * (time.perf_counter() - t0) / MESH_PROFILE_ROUNDS
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = (sum(e.self_device_time_total for e in on_device) / 1e3
+                 / MESH_PROFILE_ROUNDS)
+    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]
+    row = {"cell": name, "nodes": n, "params": sim.num_params,
+           "rounds": rounds, "round_ms": round_ms,
+           "round_ms_median": statistics.median(round_ms),
+           "step_from_draws_ms": step_ms, "draws_ms": draws_ms,
+           "all_gather_ms": gather_ms, "psum_ms": psum_ms,
+           "pool_bytes": noised.numel() * noised.element_size(),
+           "device_ms_per_round": device_ms,
+           "profiled_host_ms_per_round": prof_host_ms,
+           "device_idle_share": 1.0 - device_ms / statistics.median(round_ms),
+           "kernels_per_round": sum(e.count for e in on_device)
+           / MESH_PROFILE_ROUNDS,
+           "top": [{"name": e.key[:80], "ms_per_round":
+                    e.self_device_time_total / 1e3 / MESH_PROFILE_ROUNDS}
+                   for e in top],
+           "b1_launches": b1_launches, "b1_at_the_pool": b1,
+           "accepted": int(mask.sum()), "error": float(err),
+           "w_max_abs_diff_single_device": float((w - single[0]).abs().max()),
+           "gates": gates, "seconds": time.perf_counter() - t_cell}
+    cpu_inputs = (model_name, w_in.cpu(), tuple(t.cpu() for t in draws),
+                  w.cpu(), mask.cpu(), float(err))
+    return row, cpu_inputs, trace
+
+
+def mesh_cpu_check(cpu_mesh, inputs) -> dict:
+    """The CPU port's sharded step on a card round's draws: mask equal, w
+    and the error at MESH_RTOL."""
+    import torch
+
+    from biscotti_tpu_torch.multichip import mesh_cfg
+    from biscotti_tpu_torch.parallel.sim import (Simulator,
+                                                 sharded_step_from_draws)
+
+    model_name, w_in, draws, w, mask, err = inputs
+    t0 = time.perf_counter()
+    sim = Simulator(mesh_cfg(model_name, MESH_N), device="cpu")
+    cw, cmask, cerr = sharded_step_from_draws(sim, cpu_mesh, sim.x, sim.y,
+                                              w_in, *draws)
+    w_tol = MESH_RTOL * float(cw.abs().max())
+    return {"mask_equal": bool(torch.equal(cmask, mask)),
+            "w_close": bool(torch.allclose(w, cw, rtol=MESH_RTOL, atol=w_tol)),
+            "err_close": abs(err - float(cerr)) <= MESH_RTOL * abs(float(cerr)),
+            "w_max_abs_diff": float((w - cw).abs().max()), "w_atol": w_tol,
+            "err_card": err, "err_cpu": float(cerr),
+            "seconds": time.perf_counter() - t0}
+
+
+def mesh_phase(dev) -> dict:
+    """The multi-device paths (slice 9) on the card: (a) the sharded round
+    at mnist softmax and (b) at mnist_cnn width on a one-rank NCCL group,
+    with the CPU port on the same draws over a one-rank gloo group; (c)
+    `dryrun_multichip(1)`; (d) a 2-rank gloo group on the one card, the
+    softmax cell's rounds equal to (a)'s. Leaves no process group set up.
+    Returns B1's launches and its rows at the gathered pools."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from biscotti_tpu_torch.multichip import dryrun_multichip
+    from biscotti_tpu_torch.ops import krum_cuda
+    from biscotti_tpu_torch.parallel import mesh as pm
+
+    kern = krum_cuda.krum_scores_kernel
+    t_phase = time.perf_counter()
+    rows, cpu_inputs, traces = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-") as tmp:
+        t0 = time.perf_counter()
+        with pm.open_mesh("peers", dev, rank=0, world_size=1,
+                          init_method=f"file://{tmp}/nccl") as mesh:
+            backend = dist.get_backend()
+            open_s = time.perf_counter() - t0
+            for name, model_name, rounds in MESH_CELLS:
+                kern.launches = 0
+                rows[name], cpu_inputs[name], traces[name] = mesh_cell(
+                    mesh, name, model_name, rounds)
+        with pm.open_mesh("peers", "cpu", rank=0, world_size=1,
+                          init_method=f"file://{tmp}/gloo") as cpu_mesh:
+            for name in rows:
+                rows[name]["cpu_port"] = mesh_cpu_check(cpu_mesh,
+                                                        cpu_inputs[name])
+    for name, row in rows.items():
+        emit("mesh", backend=backend, group_open_s=open_s, **row)
+        cpu = row["cpu_port"]
+        bad = [k for k, v in row["gates"].items() if not v]
+        bad += [f"cpu_port.{k}" for k in ("mask_equal", "w_close", "err_close")
+                if not cpu[k]]
+        if not row["b1_at_the_pool"]["accept_set_identical"] \
+                or not row["b1_at_the_pool"]["max_rel_err"] < RTOL:
+            bad.append("b1_vs_plain")
+        if backend != ("nccl" if dev.type == "cuda" else "gloo"):
+            bad.append(f"backend {backend}")
+        if bad:
+            raise AssertionError(f"mesh {name}: {bad}")
+
+    # (c) the port's multi-device dry run on this card
+    t0 = time.perf_counter()
+    line = dryrun_multichip(1, device=dev.type)
+    emit("mesh", cell="dryrun_multichip", seconds=time.perf_counter() - t0,
+         summary=line)
+
+    # (d) two ranks on the one card: NCCL refuses that, gloo takes CUDA
+    # tensors; the softmax rounds must equal (a)'s
+    mesh_gloo_cell(dev, [(w.cpu().numpy(), m.cpu().numpy())
+                         for _, w, m, _ in traces[MESH_CELLS[0][0]]])
+
+    if dist.is_initialized():
+        raise AssertionError("the mesh phase left a process group set up")
+    emit("mesh", cell="done", seconds=time.perf_counter() - t_phase,
+         b1_launches={name: row["b1_launches"] for name, row in rows.items()})
+    return {"b1_launches": sum(row["b1_launches"] for row in rows.values()),
+            "b1_at": {name: row["b1_at_the_pool"] for name, row in rows.items()}}
+
+
+def mesh_gloo_cell(dev, want) -> dict:
+    """(d): the softmax cell's rounds on a 2-rank gloo group, both ranks on
+    the one card, held to (a)'s (w, mask) a round, `want`."""
+    from biscotti_tpu_torch.multichip import rounds_on_rank
+    from biscotti_tpu_torch.parallel import mesh as pm
+
+    t0 = time.perf_counter()
+    ranks = pm.spawn(rounds_on_rank, 2, dev.type, backend="gloo",
+                     args=("", MESH_N, MESH_CELLS[0][2]))
+    gloo = {"seconds": time.perf_counter() - t0,
+            "devices": [r["device"] for r in ranks],
+            "round_ms": [r["round_ms"] for r in ranks],
+            "b1_launches": [r["b1_launches"] for r in ranks],
+            "all_gather_ms": [r["all_gather_ms"] for r in ranks],
+            "psum_ms": [r["psum_ms"] for r in ranks],
+            "masks_equal_a": all(np.array_equal(m, wm) for r in ranks
+                                 for (_, m, _), (_, wm) in zip(r["trace"], want)),
+            "w_max_abs_diff_a": max(float(np.abs(w - ww).max()) for r in ranks
+                                    for (w, _, _), (ww, _) in zip(r["trace"], want))}
+    gloo["w_close_a"] = all(
+        np.allclose(w, ww, rtol=MESH_RTOL, atol=MESH_RTOL * np.abs(ww).max())
+        for r in ranks for (w, _, _), (ww, _) in zip(r["trace"], want))
+    emit("mesh", cell="gloo_two_ranks_one_card", **gloo)
+    if not (gloo["masks_equal_a"] and gloo["w_close_a"] and all(
+            l == [1] * MESH_CELLS[0][2] for l in gloo["b1_launches"])):
+        raise AssertionError(f"mesh (d): {gloo}")
+    return gloo
+
+
 def main() -> int:
     import torch
 
@@ -2221,6 +2457,9 @@ def main() -> int:
     # drivers: slice 8, the eval drivers and the bench's other entries ------
     drivers = drivers_phase(dev)
 
+    # mesh: slice 9, the sharded paths on torch.distributed -----------------
+    mesh = mesh_phase(dev)
+
     # 6. kernels ----------------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "krum_scores", "route": "cuda",
@@ -2229,14 +2468,15 @@ def main() -> int:
         "launches": (main_launches + defenses["b1_launches"]
                      + cnn["b1_launches"] + ledger["b1_launches"]
                      + hive["b1_launches"] + drivers["b1_krum_kernel"]
-                     + drivers["b1_sim_scale"]),
+                     + drivers["b1_sim_scale"] + mesh["b1_launches"]),
         "launches_by_phase": {"main": main_launches,
                               "defenses": defenses["b1_launches"],
                               "cnn": cnn["b1_launches"],
                               "ledger": ledger["b1_launches"],
                               "hive": hive["b1_launches"],
                               "drivers_krum_kernel": drivers["b1_krum_kernel"],
-                              "drivers_sim_scale": drivers["b1_sim_scale"]},
+                              "drivers_sim_scale": drivers["b1_sim_scale"],
+                              "mesh": mesh["b1_launches"]},
         "max_abs_err": main_kernel["max_abs_err"],
         "ms": main_kernel["ms"], "plain_ms": main_kernel["plain_ms"],
         "bound_ms": main_kernel["bound_ms"], "bound_by": main_kernel["bound_by"],
@@ -2250,6 +2490,10 @@ def main() -> int:
             "n", "d", "max_abs_err", "ms", "kernel_only_ms", "plain_ms",
             "gram_cublas_ms", "bound_ms", "bound_by",
             "accept_set_identical")},
+        "at_the_mesh_pools": {name: {k: r[k] for k in (
+            "n", "d", "max_abs_err", "ms", "kernel_only_ms", "plain_ms",
+            "gram_cublas_ms", "bound_ms", "bound_by", "accept_set_identical")}
+            for name, r in mesh["b1_at"].items()},
         "by_committee_size": {n: {k: r[k] for k in (
             "kernel_ms", "kernel_only_ms", "plain_ms", "gram_cublas_ms",
             "bound_ms", "bound_by", "max_abs_err", "max_rel_err",

@@ -490,3 +490,45 @@ def test_hive_stepper_batch_card_matches_cpu(dev, model):
     torch.testing.assert_close(card.noise_from_draws(z).cpu(),
                                cpu.noise_from_draws(z.cpu()), rtol=1e-6,
                                atol=0.0)
+
+
+def test_sharded_paths_on_a_one_rank_nccl_group(dev, tmp_path):
+    """The chunk-sharded share pipeline at the mnist_cnn width on the card:
+    int64 shares without a matmul, bit-identical to the host path; and
+    the sharded round at N = 512 (B1 on the gathered pool, once) equal to
+    the single-device round on the same draws."""
+    from biscotti_tpu_torch.config import BiscottiConfig
+    from biscotti_tpu_torch.ops import secretshare as ss
+    from biscotti_tpu_torch.parallel import mesh as pm
+    from biscotti_tpu_torch.parallel import sim as psim
+
+    d = 164_266
+    q = np.random.default_rng(d).integers(-10 ** 4, 10 ** 4, size=(3, d))
+    with pm.open_mesh("chunks", dev, rank=0, world_size=1,
+                      init_method=f"file://{tmp_path}/nccl") as mesh:
+        make_sh, agg_sh, recover_sh = ss.make_sharded_share_fns(
+            mesh, total_shares=20)
+        shares = torch.stack([make_sh(ss.to_chunks(qi)) for qi in q])
+        agg = agg_sh(shares)
+        rec = recover_sh(agg, ss.share_xs(20))
+        host = np.stack([ss.make_shares(qi, total_shares=20) for qi in q])
+        assert shares.device.type == "cuda"
+        assert np.array_equal(shares.cpu().numpy(), host)
+        assert np.array_equal(agg.cpu().numpy(), ss.aggregate_shares(host))
+        assert np.array_equal(rec.cpu().numpy(), ss.recover_coeffs(
+            ss.aggregate_shares(host), ss.share_xs(20)))
+        assert np.array_equal(ss.from_chunks(rec.cpu().numpy(), d), q.sum(0))
+
+        sim = psim.Simulator(BiscottiConfig(
+            dataset="mnist", num_nodes=512, sample_percent=1.0,
+            noising=True, epsilon=1.0, poison_fraction=0.3), device=dev)
+        peers = pm.device_mesh("peers", "cuda")
+        w = sim.init_state()[0]
+        draws = psim.sharded_draws(sim, 1, sim.cfg.seed, range(512))
+        before = krum_cuda.krum_scores_kernel.launches
+        got = psim.sharded_step_from_draws(sim, peers, sim.x, sim.y, w, *draws)
+        assert krum_cuda.krum_scores_kernel.launches == before + 1
+        want = sim.round_step_from_draws(w, sim.init_state()[1],
+                                         torch.arange(512, device=dev), *draws)
+        assert torch.equal(got[1], want[2]) and torch.equal(got[0], want[0])
+    assert not torch.distributed.is_initialized()

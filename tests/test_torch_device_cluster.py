@@ -128,9 +128,27 @@ def test_single_flight_memo_equals_the_reference():
         assert cache == {"k": 7} and pending == {}
 
 
-def test_a_mesh_names_one_device():
-    with pytest.raises(NotImplementedError, match="one device"):
-        BatchStepper(BiscottiConfig(**_kw(4, 17403)), ["cpu", "cpu"])
+@pytest.mark.parametrize("mesh", ["one-entry list", "list of two",
+                                  "one-rank DeviceMesh"])
+def test_a_mesh_names_one_device(mesh, tmp_path):
+    """A one-entry device list names that device; a list of several is
+    refused, pointing at the DeviceMesh route; a one-rank DeviceMesh puts
+    the stepper on its rank's device (the multi-rank branch:
+    tests/test_torch_mesh_steppers.py)."""
+    cfg = BiscottiConfig(**_kw(4, 17403))
+    if mesh == "one-entry list":
+        assert BatchStepper(cfg, ["cpu"]).device == torch.device("cpu")
+    elif mesh == "list of two":
+        with pytest.raises(ValueError, match="as a torch.distributed DeviceMesh"):
+            BatchStepper(cfg, ["cpu", "cpu"])
+    else:
+        from biscotti_tpu_torch.parallel.mesh import open_mesh
+
+        with open_mesh("peers", "cpu", rank=0, world_size=1,
+                       init_method=f"file://{tmp_path}/rendezvous") as m:
+            stepper = BatchStepper(cfg, m)
+            assert stepper.device == torch.device("cpu")
+            assert list(stepper.gids) == [0, 1, 2, 3]
 
 
 @pytest.mark.parametrize("secure_agg", [False, True], ids=["plain", "secure_agg"])

@@ -10,7 +10,8 @@ against the reference's.
     tolerance); the noise within one float32 rounding;
   * the port stepper against the port's standalone Trainers (one batch
     and one evaluation serve every peer), `UnequalShardsError` and the
-    Hive's fallback, the one-device rule for a mesh;
+    Hive's fallback, a mesh named by a device list or a one-rank
+    DeviceMesh;
   * the reference's loopback tests (tests/test_hive.py) against the
     port's hub: read-only views, admission shedding, faults, lifecycle,
     byte accounting;
@@ -196,11 +197,27 @@ def test_unequal_shards_refuse_and_the_hive_falls_back(monkeypatch):
     assert {str(a.device) for a in h.agents} == {"cpu"}
 
 
-def test_a_mesh_names_one_device():
+@pytest.mark.parametrize("mesh", ["one-entry list", "list of two",
+                                  "one-rank DeviceMesh"])
+def test_a_mesh_names_one_device(mesh, tmp_path):
+    """A one-entry device list names that device; a list of several is
+    refused, pointing at the DeviceMesh route; a one-rank DeviceMesh runs
+    the single-client batch on its rank's device (the sharded branch:
+    tests/test_torch_mesh_steppers.py)."""
     cfg = _cfg(0, 3, 17313)
-    with pytest.raises(NotImplementedError, match="one device"):
-        HiveStepper(cfg, range(3), mesh=["cpu", "cpu"])
-    assert HiveStepper(cfg, range(3), mesh=["cpu"]).device.type == "cpu"
+    if mesh == "one-entry list":
+        assert HiveStepper(cfg, range(3), mesh=["cpu"]).device.type == "cpu"
+    elif mesh == "list of two":
+        with pytest.raises(ValueError, match="as a torch.distributed DeviceMesh"):
+            HiveStepper(cfg, range(3), mesh=["cpu", "cpu"])
+    else:
+        from biscotti_tpu_torch.parallel.mesh import open_mesh
+
+        with open_mesh("peers", "cpu", rank=0, world_size=1,
+                       init_method=f"file://{tmp_path}/rendezvous") as m:
+            stepper = HiveStepper(cfg, range(3), mesh=m)
+            assert stepper.device.type == "cpu" and not stepper.sharded
+            assert stepper.mine == [0, 1, 2]
 
 
 def test_the_hive_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch):

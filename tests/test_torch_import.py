@@ -66,6 +66,10 @@ def test_port_modules_import_without_jax_or_reference():
         "eval_os_faults", "eval_committee_scale", "eval_fedsys_compare",
         "eval_pod_launch", "parse_logs")}
     assert slice8 <= set(mods), slice8 - set(mods)
+    slice9 = {"biscotti_tpu_torch." + m for m in (
+        "parallel.mesh", "multichip", "parallel.sim", "ops.secretshare",
+        "runtime.device_cluster", "runtime.hive")}
+    assert slice9 <= set(mods), slice9 - set(mods)
     ref_eval = {"biscotti_tpu_torch.eval." + f[:-3]
                 for f in os.listdir(os.path.join(REPO, "eval"))
                 if f.endswith(".py")}
@@ -78,6 +82,11 @@ def test_port_modules_import_without_jax_or_reference():
         "['bench_straggler_degradation', 'bench_attack_matrix', "
         "'bench_migration', 'bench_crypto_kernel']\n"
         "bench.plan_for(0.2, 10); bench.msm_scalars(3)\n"
+        "from biscotti_tpu_torch.parallel.sim import make_sharded_round_step\n"
+        "from biscotti_tpu_torch.ops.secretshare import make_sharded_share_fns\n"
+        "from biscotti_tpu_torch.runtime.hive import HiveStepper\n"
+        "from biscotti_tpu_torch.multichip import dryrun_multichip\n"
+        "assert callable(HiveStepper.serve)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'biscotti_tpu' "
         "or m.startswith('biscotti_tpu.'))\n"
