@@ -33,6 +33,10 @@ weights to the first's; on a host of k GPUs it is the port's measurement
 of the path across cards:
 
     python -m biscotti_tpu_torch.multichip --ranks 1,4 [--model mnist_cnn]
+
+`entry(device=None)` is the counterpart of `__graft_entry__.py::entry`: the
+single-device whole-round step at the reference's configuration, with
+example arguments on the card.
 """
 
 from __future__ import annotations
@@ -46,6 +50,39 @@ import torch
 BASE_PORT = 24310  # the reference's cluster ports (__graft_entry__.py:117)
 
 
+def entry(device: Optional[Union[str, torch.device]] = None):
+    """The pure whole-round step and example arguments, `(fn, args)`, at
+    the reference's configuration (`__graft_entry__.py:17-21`): mnist, 16
+    peers, batch 10, DP ε = 1 noising, KRUM verification, every peer
+    contributing, no verifier or miner committee. `device=None` means the
+    GPU (raises without one); `device="cpu"` the CPU.
+
+    `fn` is `Simulator.round_step_from_draws` and `args` is `(w, stake,
+    cidx, batch_idx, noise, keep)`: `init_state()` and round 0's
+    `draw_round(sim.gen, 0)`. `fn(*args)` returns (w', stake', mask, err)
+    and equals `sim.round_step(w, stake, 0)`. The reference's argument
+    list is `(w, stake, it, seed, x, y, x_val, y_val)`; here the round's
+    draws are arguments instead of `it` and `seed`, because torch does not
+    reproduce `jax.random` (the draws are made from (seed, it) by
+    `draw_round`, and the tests inject the reference's own), and the data
+    stay on the Simulator, `fn.__self__`.
+
+    With S = 16 contributors this step runs no hand-written kernel on the
+    card: B1 scores pools of 512..4096 (`ops/krum_cuda.py`, the
+    reference's Pallas window), and below that Krum is the plain torch
+    path, as the reference's is."""
+    from biscotti_tpu_torch.config import BiscottiConfig, Defense
+    from biscotti_tpu_torch.parallel.sim import Simulator
+
+    cfg = BiscottiConfig(
+        dataset="mnist", num_nodes=16, batch_size=10, epsilon=1.0,
+        noising=True, verification=True, defense=Defense.KRUM,
+        sample_percent=1.0, num_verifiers=0, num_miners=0)
+    sim = Simulator(cfg, device=device)
+    w, stake = sim.init_state()
+    return sim.round_step_from_draws, (w, stake, *sim.draw_round(sim.gen, 0))
+
+
 def _check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
@@ -55,7 +92,8 @@ def _dryrun_rank(mesh, n_devices: int, base_port: int) -> Optional[str]:
     from biscotti_tpu_torch.config import BiscottiConfig, Defense, Timeouts
     from biscotti_tpu_torch.device import synchronize
     from biscotti_tpu_torch.ops import secretshare as ss
-    from biscotti_tpu_torch.parallel.mesh import device_mesh, mesh_device
+    from biscotti_tpu_torch.parallel.mesh import (device_mesh, local_slice,
+                                                 mesh_device)
     from biscotti_tpu_torch.parallel.sim import (Simulator,
                                                  make_sharded_round_step)
     from biscotti_tpu_torch.runtime.device_cluster import run_cluster
@@ -66,7 +104,7 @@ def _dryrun_rank(mesh, n_devices: int, base_port: int) -> Optional[str]:
         dataset="creditcard", num_nodes=2 * n_devices, batch_size=8,
         epsilon=1.0, noising=True, verification=True, defense=Defense.KRUM,
         sample_percent=1.0, num_verifiers=0, num_miners=0)
-    sim = Simulator(cfg, device=dev)
+    sim = Simulator(cfg, device=dev, peers=local_slice(mesh, cfg.num_nodes))
     step = make_sharded_round_step(sim, mesh)
     w = torch.zeros(sim.num_params, dtype=torch.float32, device=dev)
     w, mask, err = step(w, 0)
@@ -151,13 +189,14 @@ def sharded_rounds(mesh, model_name: str, n: int, rounds: int):
 
     from biscotti_tpu_torch.device import synchronize
     from biscotti_tpu_torch.ops import krum_cuda
-    from biscotti_tpu_torch.parallel.mesh import mesh_device
+    from biscotti_tpu_torch.parallel.mesh import local_slice, mesh_device
     from biscotti_tpu_torch.parallel.sim import (Simulator,
                                                  make_sharded_round_step)
 
     kern = krum_cuda.krum_scores_kernel
     dev = mesh_device(mesh)
-    sim = Simulator(mesh_cfg(model_name, n), device=dev)
+    sim = Simulator(mesh_cfg(model_name, n), device=dev,
+                    peers=local_slice(mesh, n))
     step = make_sharded_round_step(sim, mesh)
     w, _, _ = step(sim.init_state()[0], 0)  # warm-up
     synchronize(dev)
@@ -176,25 +215,23 @@ def sharded_rounds(mesh, model_name: str, n: int, rounds: int):
 
 def rounds_on_rank(mesh, model_name: str, n: int, rounds: int) -> dict:
     """`sharded_rounds` on this rank, for `spawn`: its device, round times,
-    B1's launches a round and each round's (w, mask, err) as numpy, and
-    the collectives alone: the all-gather of this rank's noised updates
-    and the psum of w (host ms, ending in a synchronize)."""
+    B1's launches a round and each round's (w, mask, err) as numpy, the
+    collectives alone: the all-gather of this rank's noised updates and
+    the psum of w (host ms, ending in a synchronize), and what the rank
+    holds: its peers, the bytes of its x and y, and on a GPU the most the
+    process allocated on it (`torch.cuda.max_memory_allocated`)."""
     import time
 
     from biscotti_tpu_torch.device import synchronize
-    from biscotti_tpu_torch.parallel.mesh import (all_gather, local_slice,
-                                                 mesh_device, psum)
-    from biscotti_tpu_torch.parallel.sim import sharded_draws
+    from biscotti_tpu_torch.parallel.mesh import all_gather, mesh_device, psum
+    from biscotti_tpu_torch.parallel.sim import rank_updates, sharded_draws
 
     dev = mesh_device(mesh)
     sim, _, trace, round_ms, launches = sharded_rounds(mesh, model_name, n,
                                                        rounds)
     w = trace[-1][1]
-    mine = local_slice(mesh, n)
-    bidx, noise, _ = sharded_draws(sim, 0, sim.cfg.seed,
-                                   range(mine.start, mine.stop))
-    _, noised = sim.local_updates(w, torch.arange(mine.start, mine.stop,
-                                                  device=dev), bidx, noise)
+    bidx, noise, _ = sharded_draws(sim, 0, sim.cfg.seed, sim.peers)
+    _, noised = rank_updates(sim, sim.x, sim.y, w, bidx, noise)
 
     def host_ms(fn, reps: int = 10) -> float:
         fn()
@@ -210,8 +247,19 @@ def rounds_on_rank(mesh, model_name: str, n: int, rounds: int) -> dict:
             else "cpu", "round_ms": round_ms, "b1_launches": launches,
             "all_gather_ms": host_ms(lambda: all_gather(mesh, noised)),
             "psum_ms": host_ms(lambda: psum(mesh, w)),
+            **held_bytes(sim),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev)
+            if dev.type == "cuda" else None,
             "trace": [(w.cpu().numpy(), mask.cpu().numpy(), float(err))
                       for _, w, mask, err in trace]}
+
+
+def held_bytes(sim) -> dict:
+    """What a Simulator holds on its device: its peers and the bytes of
+    its x and y."""
+    return {"peers_held": len(sim.peers),
+            "x_bytes": sim.x.numel() * sim.x.element_size(),
+            "y_bytes": sim.y.numel() * sim.y.element_size()}
 
 
 def mesh_rounds(ranks=(1, 4), model_name: str = "", n: int = 1024,
@@ -240,6 +288,9 @@ def mesh_rounds(ranks=(1, 4), model_name: str = "", n: int = 1024,
                "b1_launches": [r["b1_launches"] for r in got],
                "all_gather_ms": [r["all_gather_ms"] for r in got],
                "psum_ms": [r["psum_ms"] for r in got],
+               **{key: [r[key] for r in got] for key in (
+                   "peers_held", "x_bytes", "y_bytes",
+                   "max_memory_allocated")},
                "masks_equal_first": all(np.array_equal(m, m0) for (_, m, _), (
                    _, m0, _) in zip(trace, first)),
                "w_close_first": all(np.allclose(

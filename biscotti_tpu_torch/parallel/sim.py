@@ -31,7 +31,9 @@ Peers-across-devices: `make_sharded_round_step` shards the peer axis over a
 cross-peer traffic is an all-gather of the [N, d] noised updates for the
 accept mask and a psum of the masked aggregate, as in the reference. Its
 draws (`sharded_draws`) and pure step (`sharded_step_from_draws`) are split
-the same way.
+the same way. Each rank's Simulator is built with `peers=local_slice(mesh,
+N)` and holds only those peers' shards on its device, 1/k of x and y (the
+reference's `device_put` with `P(axis)`, sim.py:467-470).
 """
 
 from __future__ import annotations
@@ -109,12 +111,38 @@ def masked_aggregate(mask: torch.Tensor, deltas: torch.Tensor,
     return torch.where(mask[:, None], src, torch.zeros_like(src)).sum(dim=0)
 
 
+def _held_peers(peers: Optional[slice], n: int) -> range:
+    """The contiguous peer ids a Simulator holds: every one of n for None,
+    else the slice `peers` (step 1, inside [0, n), not empty)."""
+    if peers is None:
+        return range(n)
+    if not isinstance(peers, slice):
+        raise ValueError(f"peers must be None or a slice, not "
+                         f"{type(peers).__name__}")
+    held = range(0 if peers.start is None else peers.start,
+                 n if peers.stop is None else peers.stop,
+                 1 if peers.step is None else peers.step)
+    if held.step != 1 or not 0 <= held.start < held.stop <= n:
+        raise ValueError(f"peers {peers} is not a contiguous, non-empty "
+                         f"slice of the {n} peers")
+    return held
+
+
 class Simulator:
-    """N peers on one device: the round's contributors batched as tensors."""
+    """N peers on one device: the round's contributors batched as tensors.
+
+    `peers` (a slice of peer ids; None: all N) names the peers
+    whose shards the Simulator puts on its device: a rank of the sharded
+    round holds its own slice (`make_sharded_round_step`). The host still
+    reads every shard, so `rows`, the cut every shard shares, is the
+    minimum over all N, as in the reference. A Simulator that holds a
+    proper slice refuses the single-device round, which indexes x by
+    global peer id."""
 
     def __init__(self, cfg: BiscottiConfig,
                  device: Optional[Union[str, torch.device]] = None,
-                 model: Optional[Model] = None, metrics=None):
+                 model: Optional[Model] = None, metrics=None,
+                 peers: Optional[slice] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         # optional telemetry registry (telemetry.MetricsRegistry): run()
@@ -129,6 +157,7 @@ class Simulator:
         self.defense = cfg.defense if cfg.verification else Defense.NONE
 
         n = cfg.num_nodes
+        self.peers = _held_peers(peers, n)
         poisoned = poisoned_ids(n, cfg.poison_fraction)
         xs, ys = [], []
         for i in range(n):
@@ -136,9 +165,11 @@ class Simulator:
                                   ds.shard_name(cfg.dataset, i, i in poisoned))
             xs.append(shard["x_train"])
             ys.append(shard["y_train"])
-        rows = min(len(x) for x in xs)
-        self.x = torch.from_numpy(np.stack([x[:rows] for x in xs])).to(self.device)
-        self.y = torch.from_numpy(np.stack([y[:rows] for y in ys])).to(self.device)
+        rows = min(len(x) for x in xs)  # over ALL peers (ref: sim.py:138)
+        self.x = torch.from_numpy(np.stack(
+            [xs[g][:rows] for g in self.peers])).to(self.device)
+        self.y = torch.from_numpy(np.stack(
+            [ys[g][:rows] for g in self.peers])).to(self.device)
         self.rows = rows
 
         test = ds.load_shard(cfg.dataset, f"{cfg.dataset}_test")
@@ -165,6 +196,17 @@ class Simulator:
 
     # ------------------------------------------------------------- the round
 
+    def _whole(self, what: str) -> None:
+        """Raise unless this Simulator holds every peer: `what` indexes x
+        by global peer id."""
+        n = self.cfg.num_nodes
+        if len(self.peers) != n:
+            raise ValueError(
+                f"{what} needs every peer's shard, but this Simulator holds "
+                f"only peers {self.peers.start}..{self.peers.stop - 1} of {n} "
+                f"(peers=slice({self.peers.start}, {self.peers.stop})); "
+                f"build it with peers=None for the single-device round")
+
     def draw_round(self, gen: torch.Generator, it: int,
                    seed: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
         """Every random choice of round `it`, re-seeding `gen` so the draws
@@ -174,6 +216,7 @@ class Simulator:
         replacement), noise[S, d] (DP noise, already scaled by −α/b; zeros
         when noising is off) and keep[S] (False where the fault plan drops
         the contributor's frame, drawn from the fault seed)."""
+        self._whole("draw_round")
         cfg = self.cfg
         n, s = cfg.num_nodes, cfg.num_samples
         gen.manual_seed(stream_seed(cfg.seed if seed is None else seed,
@@ -214,6 +257,7 @@ class Simulator:
                       noise: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(deltas[S, d], noised[S, d]): each contributor's step on its own
         minibatch, and the copy the verifiers see."""
+        self._whole("local_updates")
         rows = cidx[:, None]
         with fp32_math():
             deltas = self._batched_step(w, self.x[rows, batch_idx],
@@ -224,6 +268,7 @@ class Simulator:
         """One round from its draws; pure. Returns (w_next, stake_next, mask,
         err). A dropped frame (keep False) was scored by the verifiers but
         joins no aggregate and moves no stake."""
+        self._whole("round_step_from_draws")
         cfg = self.cfg
         with fp32_math():
             deltas, noised = self.local_updates(w, cidx, batch_idx, noise)
@@ -242,6 +287,7 @@ class Simulator:
 
     def round_step(self, w: torch.Tensor, stake: torch.Tensor, it: int,
                    seed: Optional[int] = None):
+        self._whole("round_step")
         return self.round_step_from_draws(
             w, stake, *self.draw_round(self.gen, it, seed))
 
@@ -256,6 +302,7 @@ class Simulator:
     def run(self, num_rounds: Optional[int] = None, log_every: int = 1,
             stop_at_convergence: bool = True):
         """Python round loop; returns (w, stake, logs) like the reference."""
+        self._whole("run")
         if num_rounds is None:
             num_rounds = self.cfg.max_iterations
         w, stake = self.init_state()
@@ -289,6 +336,7 @@ class Simulator:
         overrides cfg.seed without rebuilding the Simulator. Returns
         (w, stake, errs[num_rounds], accepted[num_rounds]) with numpy
         arrays for the last two."""
+        self._whole("run_scan")
         if num_rounds is None:
             num_rounds = self.cfg.max_iterations
         w, stake = self.init_state()
@@ -353,6 +401,19 @@ def sharded_draws(sim: Simulator, it: int, seed: int, gids: Sequence[int]
             sim.draw_keep(sim.gen, it, sim.cfg.num_nodes))
 
 
+def rank_updates(sim: Simulator, x_loc: torch.Tensor, y_loc: torch.Tensor,
+                 w: torch.Tensor, batch_idx: torch.Tensor,
+                 noise: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(deltas, noised) of the peers whose data are x_loc, y_loc (a rank's
+    own, in order): each one's step on its rows batch_idx, and the copy
+    the verifiers see."""
+    rows = torch.arange(x_loc.shape[0], device=x_loc.device)[:, None]
+    with fp32_math():
+        deltas = sim._batched_step(w, x_loc[rows, batch_idx],
+                                   y_loc[rows, batch_idx])
+    return deltas, deltas + noise
+
+
 def sharded_step_from_draws(sim: Simulator, mesh, x_loc: torch.Tensor,
                             y_loc: torch.Tensor, w: torch.Tensor,
                             batch_idx: torch.Tensor, noise: torch.Tensor,
@@ -369,11 +430,8 @@ def sharded_step_from_draws(sim: Simulator, mesh, x_loc: torch.Tensor,
     every rank."""
     cfg, n = sim.cfg, sim.cfg.num_nodes
     mine = local_slice(mesh, n)
-    rows = torch.arange(x_loc.shape[0], device=x_loc.device)[:, None]
     with fp32_math():
-        deltas = sim._batched_step(w, x_loc[rows, batch_idx],
-                                   y_loc[rows, batch_idx])
-        noised = deltas + noise
+        deltas, noised = rank_updates(sim, x_loc, y_loc, w, batch_idx, noise)
         all_noised = all_gather(mesh, noised)  # [N, d]
         mask = defense_mask(sim.defense, sim.model, w, all_noised, sim.x_val,
                             sim.y_val, cfg.roni_threshold,
@@ -392,11 +450,11 @@ def sharded_step_from_draws(sim: Simulator, mesh, x_loc: torch.Tensor,
 
 def make_sharded_round_step(sim: Simulator, mesh, axis: str = "peers"):
     """The peers-across-devices round step on a 1-D `DeviceMesh`
-    (`parallel/mesh.py`) named `axis`, one rank a device, the simulator
-    built on this rank's device (ref: sim.py:377-476). This rank's step
-    reads only its peers' rows of sim.x and sim.y, through a view: the
-    Simulator itself holds every peer's shard on each rank (the reference
-    places 1/k of them on each device). Returns
+    (`parallel/mesh.py`) named `axis`, one rank a device (ref:
+    sim.py:377-476). The simulator is built on this rank's device with
+    `peers=local_slice(mesh, N)`, so it holds this rank's N/k shards and
+    no other (the reference's `device_put` with `P(axis)`); at one rank
+    that slice is every peer, and the plain Simulator serves. Returns
     `run_step(w, it, seed=None) -> (w_next, mask, err)`, replicated on
     every rank; `seed` overrides cfg.seed, as on the single-device path."""
     if axis not in (mesh.mesh_dim_names or ()):
@@ -406,12 +464,16 @@ def make_sharded_round_step(sim: Simulator, mesh, axis: str = "peers"):
                          f"rank's device is {mesh_device(mesh)}")
     mine = local_slice(mesh, sim.cfg.num_nodes)
     gids = range(mine.start, mine.stop)
-    x_loc, y_loc = sim.x[mine], sim.y[mine]
+    if sim.peers != gids:
+        raise ValueError(
+            f"the simulator holds peers {sim.peers.start}..{sim.peers.stop - 1}"
+            f", this rank's slice is {gids.start}..{gids.stop - 1}: build it "
+            f"with peers=local_slice(mesh, {sim.cfg.num_nodes})")
 
     def run_step(w: torch.Tensor, it: int, seed: Optional[int] = None):
         draws = sharded_draws(sim, it, sim.cfg.seed if seed is None else seed,
                               gids)
-        return sharded_step_from_draws(sim, mesh, x_loc, y_loc, w, *draws)
+        return sharded_step_from_draws(sim, mesh, sim.x, sim.y, w, *draws)
 
     return run_step
 

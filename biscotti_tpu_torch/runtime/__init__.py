@@ -4,5 +4,6 @@ update packers (`wire.py`), the protocol feature table (`protocol.py`),
 the asyncio RPC layer (`rpc.py`), the JAX-free planes under the peer
 (`faults.py`, `admission.py`, `stragglers.py`, `overlay.py`,
 `placement.py`, `membership.py`, `adversary.py`) and the live peer agent
-(`peer.py::PeerAgent`, on the device its caller names). The hive and the
-device cluster are not ported yet."""
+(`peer.py::PeerAgent`, on the device its caller names), the hive of
+co-hosted peers (`hive.py`) and the device cluster on a batched stepper
+(`device_cluster.py`)."""

@@ -141,7 +141,14 @@ def rss_peak_bytes() -> int:
     on Linux). The reference reads ru_maxrss, which Linux carries across
     fork and exec, so a hive launched from a large process (the density
     bench's subprocess) reports its launcher's peak as its own (ROADMAP
-    C5); VmHWM starts anew with the process's image."""
+    C5); VmHWM starts anew with the process's image.
+
+    The hive's monitor and `summarize` report the larger of this and the
+    largest RSS the monitor sampled (`rss_sampled_max_bytes`), so the
+    peak they report bounds every sample: Linux keeps RSS in per-CPU
+    counters and folds them into VmHWM lazily, so a `statm` sample can
+    exceed a later VmHWM by a few pages (ROADMAP C7). Their
+    `rss_peak_source` still names the kernel counter read here."""
     hwm = vm_hwm_bytes()
     if hwm is not None:
         return hwm
@@ -700,9 +707,10 @@ class Hive:
             rss = rss_bytes()
             self.info["loop_lag_s"] = lag
             self.info["rss_bytes"] = rss
-            self.info["rss_peak_bytes"] = rss_peak_bytes()
             self.info["rss_sampled_max_bytes"] = max(
                 rss, self.info["rss_sampled_max_bytes"])
+            self.info["rss_peak_bytes"] = max(
+                rss_peak_bytes(), self.info["rss_sampled_max_bytes"])
             samples.append((now, rss, lag))
             while samples and now - samples[0][0] > DRIFT_WINDOW_S:
                 samples.pop(0)
@@ -749,7 +757,7 @@ def summarize(hive: Hive, results: List[Dict], wall: float,
         s_per_iter = (ts[-1] - ts[0]) / (len(ts) - 1)
     else:
         s_per_iter = wall / max(1, iterations)
-    peak = rss_peak_bytes()
+    peak = max(rss_peak_bytes(), hive.info["rss_sampled_max_bytes"])
     return {
         "hive": hive.info["id"],
         "nodes": [hive.local_ids[0], hive.local_ids[-1] + 1],

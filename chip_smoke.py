@@ -198,7 +198,17 @@ printed as one JSON line:
               `dryrun_multichip(1)` on the card; (d) two ranks of a gloo
               group on the one card (NCCL takes one rank a GPU), the
               softmax rounds of (a), masks and w equal to (a)'s; no
-              process group left set up;
+              process group left set up. Each rank's Simulator holds only
+              its own peers (`peers=local_slice(mesh, N)`): (a) and (b)
+              report 1,024 peers held and the bytes of x and y, (d) each
+              rank's 512 peers (a gate), bytes and
+              `torch.cuda.max_memory_allocated`;
+  entry       `multichip.entry()`, the counterpart of
+              `__graft_entry__.py::entry`, on the card: its step on its
+              arguments twice, bit-identical, and equal to the
+              Simulator's `round_step(w, stake, 0)`; its host ms (median
+              of 20, each ending in a synchronize); B1 launches 0 (S = 16
+              lies below B1's window, as in the reference);
   6. kernels  one line for every ported kernel (B1's launches from phases
               4, defenses, cnn, ledger, hive (c), drivers (a) and (b) and
               mesh (a) and (b), with its times at (716, 164266), at the
@@ -1987,7 +1997,7 @@ def mesh_cell(mesh, name: str, model_name: str, rounds: int):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from biscotti_tpu_torch.multichip import sharded_rounds
+    from biscotti_tpu_torch.multichip import held_bytes, sharded_rounds
     from biscotti_tpu_torch.ops import krum_cuda
     from biscotti_tpu_torch.ops.krum import (accept_mask,
                                              default_num_adversaries,
@@ -2025,7 +2035,8 @@ def mesh_cell(mesh, name: str, model_name: str, rounds: int):
         "step_from_draws_is_the_round": bool(
             torch.equal(again[0], w) and torch.equal(again[1], mask)),
         "w_finite": bool(torch.isfinite(w).all()),
-        "accepted_n_minus_f": int(mask.sum()) == n - f}
+        "accepted_n_minus_f": int(mask.sum()) == n - f,
+        "holds_every_peer": sim.x.shape[0] == len(sim.peers) == n}
     got, ref = kern(noised, f), krum_cuda.krum_scores_plain(noised, f)
     b1 = {"n": n, "d": sim.num_params,
           "max_abs_err": float((got - ref).abs().max()),
@@ -2051,7 +2062,7 @@ def mesh_cell(mesh, name: str, model_name: str, rounds: int):
                  / MESH_PROFILE_ROUNDS)
     top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]
     row = {"cell": name, "nodes": n, "params": sim.num_params,
-           "rounds": rounds, "round_ms": round_ms,
+           **held_bytes(sim), "rounds": rounds, "round_ms": round_ms,
            "round_ms_median": statistics.median(round_ms),
            "step_from_draws_ms": step_ms, "draws_ms": draws_ms,
            "all_gather_ms": gather_ms, "psum_ms": psum_ms,
@@ -2079,12 +2090,14 @@ def mesh_cpu_check(cpu_mesh, inputs) -> dict:
     import torch
 
     from biscotti_tpu_torch.multichip import mesh_cfg
+    from biscotti_tpu_torch.parallel.mesh import local_slice
     from biscotti_tpu_torch.parallel.sim import (Simulator,
                                                  sharded_step_from_draws)
 
     model_name, w_in, draws, w, mask, err = inputs
     t0 = time.perf_counter()
-    sim = Simulator(mesh_cfg(model_name, MESH_N), device="cpu")
+    sim = Simulator(mesh_cfg(model_name, MESH_N), device="cpu",
+                    peers=local_slice(cpu_mesh, MESH_N))
     cw, cmask, cerr = sharded_step_from_draws(sim, cpu_mesh, sim.x, sim.y,
                                               w_in, *draws)
     w_tol = MESH_RTOL * float(cw.abs().max())
@@ -2165,7 +2178,8 @@ def mesh_phase(dev) -> dict:
 
 def mesh_gloo_cell(dev, want) -> dict:
     """(d): the softmax cell's rounds on a 2-rank gloo group, both ranks on
-    the one card, held to (a)'s (w, mask) a round, `want`."""
+    the one card, held to (a)'s (w, mask) a round, `want`; each rank holds
+    its own MESH_N // 2 peers."""
     from biscotti_tpu_torch.multichip import rounds_on_rank
     from biscotti_tpu_torch.parallel import mesh as pm
 
@@ -2178,6 +2192,8 @@ def mesh_gloo_cell(dev, want) -> dict:
             "b1_launches": [r["b1_launches"] for r in ranks],
             "all_gather_ms": [r["all_gather_ms"] for r in ranks],
             "psum_ms": [r["psum_ms"] for r in ranks],
+            **{key: [r[key] for r in ranks] for key in (
+                "peers_held", "x_bytes", "y_bytes", "max_memory_allocated")},
             "masks_equal_a": all(np.array_equal(m, wm) for r in ranks
                                  for (_, m, _), (_, wm) in zip(r["trace"], want)),
             "w_max_abs_diff_a": max(float(np.abs(w - ww).max()) for r in ranks
@@ -2187,9 +2203,55 @@ def mesh_gloo_cell(dev, want) -> dict:
         for r in ranks for (w, _, _), (ww, _) in zip(r["trace"], want))
     emit("mesh", cell="gloo_two_ranks_one_card", **gloo)
     if not (gloo["masks_equal_a"] and gloo["w_close_a"] and all(
-            l == [1] * MESH_CELLS[0][2] for l in gloo["b1_launches"])):
+            l == [1] * MESH_CELLS[0][2] for l in gloo["b1_launches"])
+            and gloo["peers_held"] == [MESH_N // 2] * 2):
         raise AssertionError(f"mesh (d): {gloo}")
     return gloo
+
+
+def entry_phase() -> dict:
+    """`multichip.entry()` on the card: the step on its own arguments twice,
+    bit-identical, equal to the Simulator's `round_step(w, stake, 0)`, its
+    host ms a call (median of 20, each ending in a synchronize), and B1
+    launched no time (S = 16, below B1's window)."""
+    import torch
+
+    from biscotti_tpu_torch.multichip import entry
+    from biscotti_tpu_torch.ops import krum_cuda
+
+    kern = krum_cuda.krum_scores_kernel
+    t0 = time.perf_counter()
+    kern.launches = 0
+    fn, args = entry()
+    once, twice = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    launches = kern.launches
+    sim = fn.__self__
+    want = sim.round_step(args[0], args[1], 0)
+    call_ms = []
+    for _ in range(20):
+        t1 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        call_ms.append(1e3 * (time.perf_counter() - t1))
+    w, _, mask, err = once
+    row = {"nodes": sim.cfg.num_nodes, "contributors": int(args[2].shape[0]),
+           "params": sim.num_params,
+           "devices": sorted({str(t.device) for t in args}),
+           "bit_identical_twice": all(torch.equal(a, b)
+                                      for a, b in zip(once, twice)),
+           "equals_round_step": all(torch.equal(a, b)
+                                    for a, b in zip(once, want)),
+           "w_finite": bool(torch.isfinite(w).all()),
+           "accepted": int(mask.sum()), "error": float(err),
+           "call_ms": call_ms, "call_ms_median": statistics.median(call_ms),
+           "b1_launches": launches, "seconds": time.perf_counter() - t0}
+    emit("entry", **row)
+    if not (row["bit_identical_twice"] and row["equals_round_step"]
+            and row["w_finite"] and launches == 0
+            and row["devices"] == ["cuda:0"]):
+        raise AssertionError(f"entry: {row}")
+    return row
 
 
 def main() -> int:
@@ -2459,6 +2521,9 @@ def main() -> int:
 
     # mesh: slice 9, the sharded paths on torch.distributed -----------------
     mesh = mesh_phase(dev)
+
+    # entry: the counterpart of __graft_entry__.py::entry on the card -------
+    entry_phase()
 
     # 6. kernels ----------------------------------------------------------
     print(json.dumps({"kernels": [{

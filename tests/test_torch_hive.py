@@ -288,6 +288,30 @@ def test_rss_peak_is_the_launched_process_own():
     assert phive.rss_peak_bytes() >= held.nbytes
 
 
+def test_reported_rss_peak_bounds_every_sample(monkeypatch):
+    """ROADMAP C7: Linux folds its per-CPU RSS counters into VmHWM lazily,
+    so a monitor sample can exceed a later VmHWM. With VmHWM read as one
+    page, below every sample, the monitor's and the summary's peak still
+    bound the sampled maximum, and the source still names VmHWM."""
+    monkeypatch.setattr(phive, "vm_hwm_bytes", lambda: 4096)
+    hive = Hive(_cfg(0, 3, 17390), hive_id="c7", device="cpu")
+
+    async def sample():
+        mon = asyncio.get_running_loop().create_task(hive._monitor(0.01))
+        await asyncio.sleep(0.1)
+        mon.cancel()
+
+    asyncio.run(sample())
+    sampled = hive.info["rss_sampled_max_bytes"]
+    assert sampled > 4096
+    assert hive.info["rss_peak_bytes"] >= sampled
+    results = [{"chain_dump": "genesis\nblock", "logs": [], "telemetry": {}}]
+    summary = phive.summarize(hive, results, 1.0, 1)
+    assert summary["rss_sampled_max_bytes"] == sampled
+    assert summary["rss_peak_bytes"] >= sampled
+    assert summary["rss_peak_source"] == "VmHWM"
+
+
 def test_loopback_call_roundtrip_readonly_views_and_accounting():
     async def scenario():
         hub = LoopbackHub()

@@ -59,11 +59,16 @@ def _kw(case):
     return kw, defense, dict(drop=drop, seed=5) if drop else {}
 
 
-def _port_sim(case):
+def _port_sim(case, peers=None):
     kw, defense, drop = _kw(case)
     return psim.Simulator(BiscottiConfig(defense=Defense(defense),
                                          fault_plan=FaultPlan(**drop), **kw),
-                          device="cpu")
+                          device="cpu", peers=peers)
+
+
+def _rank_sim(mesh, case):
+    """`case`'s Simulator holding this rank's peers only."""
+    return _port_sim(case, peers=pm.local_slice(mesh, CASES[case][1]))
 
 
 # ----------------------------------------------------------- the reference
@@ -118,7 +123,7 @@ def _reference(case):
 def _port_rounds(mesh, case, ws, draws):
     """This rank's rounds of `case` from the weights `ws` on the
     reference's draws: (w, mask, err, the gathered pool) a round, numpy."""
-    sim = _port_sim(case)
+    sim = _rank_sim(mesh, case)
     mine = pm.local_slice(mesh, sim.cfg.num_nodes)
     pools, out = [], []
     real = psim.defense_mask
@@ -131,7 +136,7 @@ def _port_rounds(mesh, case, ws, draws):
     try:
         for w, (bidx, noise, keep) in zip(ws, draws):
             w, mask, err = psim.sharded_step_from_draws(
-                sim, mesh, sim.x[mine], sim.y[mine], torch.from_numpy(w),
+                sim, mesh, sim.x, sim.y, torch.from_numpy(w),
                 torch.from_numpy(bidx[mine]), torch.from_numpy(noise[mine]),
                 torch.from_numpy(keep.copy()))
             out.append((w.numpy().copy(), mask.numpy().copy(), float(err),
@@ -144,7 +149,7 @@ def _port_rounds(mesh, case, ws, draws):
 def _seed_override(mesh):
     """make_sharded_round_step's seed argument, as the reference's
     test_sharded_seed_override_takes_effect checks it."""
-    sim = _port_sim("creditcard8_krum")
+    sim = _rank_sim(mesh, "creditcard8_krum")
     step = psim.make_sharded_round_step(sim, mesh)
     w = torch.zeros(sim.num_params)
     a, a2, b = (step(w, 0, seed=s)[0] for s in (1, 1, 2))
@@ -281,6 +286,79 @@ def test_sharded_step_equals_the_single_device_round_on_the_same_draws(tmp_path)
     torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=1e-7)
     assert float(got[2]) == float(want[3])
     assert all(torch.equal(a, b) for a, b in zip(got, run))
+
+
+# ------------------------------------------- a rank holds only its own peers
+
+
+def test_a_slice_simulator_holds_the_full_ones_rows_bit_for_bit():
+    full = _port_sim("mnist16_krum_drop")
+    for peers in (slice(0, 4), slice(4, 8), slice(12, None), slice(8, 16)):
+        part = _port_sim("mnist16_krum_drop", peers=peers)
+        lo, hi = peers.start, peers.stop or 16
+        assert torch.equal(part.x, full.x[lo:hi])
+        assert torch.equal(part.y, full.y[lo:hi])
+        assert part.rows == full.rows
+        assert part.x.shape[0] == len(part.peers) == hi - lo
+    whole = _port_sim("mnist16_krum_drop", peers=slice(0, 16))
+    assert torch.equal(whole.x, full.x) and whole.peers == full.peers
+    for bad in (slice(4, 4), slice(0, 17), slice(0, 16, 2), range(0, 4)):
+        with pytest.raises(ValueError, match="peers"):
+            _port_sim("mnist16_krum_drop", peers=bad)
+
+
+def test_a_slice_simulator_refuses_the_single_device_round():
+    sim = _port_sim("creditcard8_krum", peers=slice(4, 8))
+    w, stake = sim.init_state()
+    draws = psim.sharded_draws(sim, 0, sim.cfg.seed, range(8))
+    calls = {
+        "draw_round": lambda: sim.draw_round(sim.gen, 0),
+        "local_updates": lambda: sim.local_updates(
+            w, torch.arange(8), draws[0], draws[1]),
+        "round_step_from_draws": lambda: sim.round_step_from_draws(
+            w, stake, torch.arange(8), draws[0], draws[1], draws[2]),
+        "round_step": lambda: sim.round_step(w, stake, 0),
+        "run": lambda: sim.run(1),
+        "run_scan": lambda: sim.run_scan(1)}
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match=rf"^{name} needs every peer's "
+                                             r"shard.*peers 4\.\.7 of 8"):
+            call()
+
+
+def test_the_sharded_step_refuses_a_slice_that_is_not_the_ranks(tmp_path):
+    with pm.open_mesh("peers", "cpu", rank=0, world_size=1,
+                      init_method=f"file://{tmp_path}/rendezvous") as mesh:
+        for peers in (slice(0, 4), slice(4, 8)):
+            with pytest.raises(ValueError, match="this rank's slice is 0..7"):
+                psim.make_sharded_round_step(
+                    _port_sim("creditcard8_krum", peers=peers), mesh)
+
+
+def _held(mesh):
+    """What this rank's Simulator holds, and its sharded step's first
+    round, for the world-size test below."""
+    sim = _rank_sim(mesh, "mnist16_krum_drop")
+    w, mask, _ = psim.make_sharded_round_step(sim, mesh)(
+        sim.init_state()[0], 0)
+    return (mesh.size(), sim.x.shape[0], sim.y.shape[0],
+            (sim.peers.start, sim.peers.stop), w.numpy(), mask.numpy())
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_each_rank_holds_n_over_k_peers(world, tmp_path):
+    n = CASES["mnist16_krum_drop"][1]
+    if world == 1:
+        with pm.open_mesh("peers", "cpu", rank=0, world_size=1,
+                          init_method=f"file://{tmp_path}/rendezvous") as mesh:
+            got = [_held(mesh)]
+    else:
+        got = pm.spawn(_held, world, "cpu", timeout_s=TIMEOUT_S)
+    assert len(got) == world
+    for rank, (k, x_rows, y_rows, peers, w, mask) in enumerate(got):
+        assert k == world and x_rows == y_rows == n // world
+        assert peers == (rank * n // world, (rank + 1) * n // world)
+        assert np.array_equal(mask, got[0][5]) and np.array_equal(w, got[0][4])
 
 
 def test_a_cuda_mesh_needs_a_gpu_a_rank(monkeypatch):
