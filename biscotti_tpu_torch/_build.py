@@ -10,6 +10,9 @@ as `c_void_p`.
     krum_scores  kernel B1, Krum scores        (ops/krum_cuda.py; three CUDA
                  kernels a call: pad, fp32 Gram, row select)
     oncurve      kernel B2, on-curve validator (crypto/kernels/cuda_validate.py)
+    ed25519_ladder  kernels B3a-B3d, the crypto ladders: msm double-and-add,
+                 fixed-base walk, grid validate-and-points, point add
+                 (crypto/kernels/cuda_ladder.py)
 
 `crypto/_native.py` builds the host EC library with `g++` through the same
 `digest_path` and `compile_once`.
@@ -55,8 +58,23 @@ def _oncurve_signatures(lib: ctypes.CDLL) -> None:
     lib.oncurve_error_string.restype = ctypes.c_char_p
 
 
+def _ladder_signatures(lib: ctypes.CDLL) -> None:
+    p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # (bits, words, points or table, out, bad, m, stream) -> cudaError_t
+    for fn in (lib.ed25519_msm_ladder, lib.ed25519_fixed_walk):
+        fn.argtypes = [p, i, p, p, p, n, p]
+        fn.restype = ctypes.c_int
+    # (xy, ok, pts, bad, cells, stream) and (a, b, out, bad, n, stream)
+    for fn in (lib.ed25519_grid_points, lib.ed25519_point_add):
+        fn.argtypes = [p, p, p, p, n, p]
+        fn.restype = ctypes.c_int
+    lib.ed25519_error_string.argtypes = [ctypes.c_int]
+    lib.ed25519_error_string.restype = ctypes.c_char_p
+
+
 SIGNATURES = {"krum_scores": _krum_signatures,
-              "oncurve": _oncurve_signatures}
+              "oncurve": _oncurve_signatures,
+              "ed25519_ladder": _ladder_signatures}
 KERNELS = tuple(SIGNATURES)
 
 

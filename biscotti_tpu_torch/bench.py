@@ -58,8 +58,8 @@ device, each under the reference's key, and each skipped as there by its
     per-move downtime and ticket bytes;
   * `crypto_kernel` → `crypto_kernel` (bench.py:520-566): the native host
     `cm.msm` against the device plane's `kernels.msm` on the bench's
-    device at widths 8, 35 and 100 (on the card an eager ladder, seconds a
-    call; no availability probe skips it).
+    device at widths 8, 35 and 100 (on the card kernel B3's ladder, a few
+    ms a call; no availability probe skips it).
 The live entries take `base_port`; their defaults are the reference's
 (14310, 14190, 15700).
 
@@ -101,10 +101,10 @@ from biscotti_tpu_torch.runtime import messages as msgs
 from biscotti_tpu_torch.runtime import wire as rwire
 
 WARM_ROUNDS = 2
-# the reference's default device-settle cap (C·k points): the eager device
-# settle is launch-bound, seconds a call whatever its width, so the bench
-# pays it on the one row under the cap (creditcard_10) and chip_smoke's
-# `secagg` phase times it at the mnist width
+# the reference's default device-settle cap (C·k points), kept as the
+# reference has it: the bench runs the device settle on the one row under
+# the cap (creditcard_10), and chip_smoke's `secagg` phase times it at the
+# mnist width
 DEVICE_SETTLE_MAX_D = 2048
 HEADLINE = "mnist_100_dp_eps1"
 HEADLINE_METRIC = ("crypto-inclusive s/iter, 100-peer MNIST softmax + Krum "

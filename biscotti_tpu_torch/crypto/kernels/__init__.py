@@ -2,9 +2,11 @@
 `biscotti_tpu/crypto/kernels/`).
 
 Limb-decomposed Edwards25519 arithmetic (`field.py` → `group.py` →
-`primitives.py`) as eager int64 torch ops, with the on-curve validator as a
-hand-written CUDA kernel (`cuda_validate.py`, kernel B2), behind the
-reference's process-wide arming switch:
+`primitives.py`), whose ladders run as hand-written CUDA kernels on the card
+(`cuda_ladder.py`, kernel B3: the msm ladder, the fixed-base walk, the grid
+validation and the point add) beside the on-curve validator
+(`cuda_validate.py`, kernel B2), and as the same formulas in int64 torch
+ops on the CPU, behind the reference's process-wide arming switch:
 
     from biscotti_tpu_torch.crypto import kernels
     kernels.set_enabled(True)               # the GPU
@@ -18,8 +20,8 @@ GPU, and arming without one raises (`device.resolve_device`): the plane
 never runs quietly on the CPU. Unlike the reference, a device fault in a
 seam raises out of it; no seam finishes on the CPU after one.
 
-Importing this package builds and loads nothing: the CUDA kernel is built
-by `_build.py` at its first launch.
+Importing this package builds and loads nothing: the CUDA kernels are
+built by `_build.py` at their first launch (or in `prewarm`).
 """
 
 from __future__ import annotations

@@ -24,9 +24,12 @@ reduction, then top-half scalars become (q−s)·(−P) — so the device MSM
 agrees with the CPU oracle on EVERY input, torsioned points included (see
 `_norm_scalar_point`). Batches pad up to power-of-two lane buckets with the
 identity point / zero scalar, which the complete addition absorbs, because
-`tree_sum` halves a power of two. The reference's 256-step `fori_loop`s are
-Python loops over eager torch ops here, each step the reference's own
-formulas, so the port's limbs equal the reference's bit for bit.
+`tree_sum` halves a power of two. Each of the reference's jitted programs
+is a hand-written CUDA kernel here, kernel B3 (`cuda_ladder.py`: the msm
+ladder, the fixed-base walk, the grid's validate-and-points and the point
+add, with the tree sums as one point-add launch a level); on the CPU the
+wrappers compute their plain versions, the reference's own formulas as
+torch ops. Either way the port's limbs equal the reference's bit for bit.
 
 Every entry point takes `device=None`: the GPU unless the caller asks for
 the CPU (`device.resolve_device`). Inputs and results are numpy arrays or
@@ -43,6 +46,7 @@ import numpy as np
 import torch
 
 from biscotti_tpu_torch.crypto import ed25519 as ed
+from biscotti_tpu_torch.crypto.kernels import cuda_ladder as cl
 from biscotti_tpu_torch.crypto.kernels import field as fe
 from biscotti_tpu_torch.crypto.kernels import group as gp
 from biscotti_tpu_torch.crypto.kernels.instrument import timed
@@ -73,6 +77,11 @@ def _pow2(n: int, floor: int = 1) -> int:
 MSM_MIN_LANES = 32
 FIXED_MIN_LANES = 4
 GRID_MIN_WAVES = 4
+
+
+def _on(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array as a contiguous tensor on `dev`, for a ladder wrapper."""
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
 
 
 def point_neg_limbs(arr: np.ndarray) -> np.ndarray:
@@ -107,49 +116,6 @@ def _fixed_table(which: str) -> np.ndarray:
     return tab
 
 
-# ----------------------------------------------------------- device loops
-
-
-def _lane_bits(bits: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """[n, steps] 0/1 matrix → [steps, n] bool on `dev`: row i is step
-    i's per-lane condition, contiguous."""
-    return torch.from_numpy(np.ascontiguousarray(bits.T)).to(dev) > 0
-
-
-def _msm_ladder(bits: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
-    """MSB-first double-and-add of every lane, then the tree sum.
-    bits [256, m] bool, pts [m, 4, 16] → [4, 16]."""
-    acc = gp.identity_on((pts.shape[0],), pts.device)
-    for i in range(bits.shape[0]):
-        acc = gp.point_double(acc)
-        acc = gp.select(bits[i], gp.point_add(acc, pts), acc)
-    return gp.tree_sum(acc)
-
-
-def _fixed_walk(bits: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """bits [steps, m] (LSB-first) against table[i] = 2ⁱ·base (tables may
-    be concatenated: B‖H walks both in one loop) → [m, 4, 16]."""
-    acc = gp.identity_on((bits.shape[1],), table.device)
-    for i in range(bits.shape[0]):
-        acc = gp.select(bits[i], gp.point_add(acc, table[i]), acc)
-    return acc
-
-
-def _grid_sum(xy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[w, n, 2, 16] int64 cells → (grid_ok [w] bool, [n, 4, 16] sum of
-    the valid grids' points)."""
-    w, n = xy.shape[0], xy.shape[1]
-    x = xy[..., 0, :]
-    y = xy[..., 1, :]
-    ok = fe.lt_p(x) & fe.lt_p(y) & gp.on_curve(x, y)  # [w, n]
-    grid_ok = ok.all(dim=1)  # [w]
-    one = fe.const("ONE_LIMBS", xy.device).expand(w, n, fe.LIMBS)
-    pts = torch.stack([x, y, one, fe.fmul(x, y)], dim=-2)
-    pts = torch.where(grid_ok[:, None, None, None], pts,
-                      gp.identity_on((w, n), xy.device))
-    return grid_ok, gp.tree_sum(pts)
-
-
 # ----------------------------------------------------------- public API
 
 
@@ -182,29 +148,59 @@ def _norm_scalar_point(scalars, pts_limbs) -> Tuple[np.ndarray, np.ndarray]:
     return bits, pts
 
 
+def msm_lanes(scalars: Sequence[int], points) -> Tuple[np.ndarray,
+                                                      np.ndarray]:
+    """What `msm` hands kernel B3a: (packed MSB-first bits [m, 8] int32,
+    points [m, 4, 16] int64), normalized by `_norm_scalar_point` and
+    padded to the power-of-two lane bucket with the identity and zero
+    scalars. `points` as for `msm`."""
+    n = len(scalars)
+    if isinstance(points, np.ndarray):
+        pts = np.asarray(points[:n], dtype=np.int64)
+    else:
+        pts = gp.points_to_limbs(points).astype(np.int64)
+    bits, pts = _norm_scalar_point(scalars, pts)
+    m = _pow2(n, MSM_MIN_LANES)
+    if m != n:
+        bits = np.concatenate([bits, np.zeros((m - n, 256), bits.dtype)])
+        pts = np.concatenate([pts, gp.identity((m - n,))])
+    return cl.pack_bits(bits), pts
+
+
 def msm(scalars: Sequence[int], points, device: Device = None) -> ed.Point:
     """Σ sᵢ·Pᵢ on `device`. `points` is a sequence of extended python-int
     points or an [n, 4, 16] limb array (e.g. a wave-folded accumulator).
     Returns an extended python-int point — projectively equal (identical
-    group element) to the CPU oracle's result on every input."""
+    group element) to the CPU oracle's result on every input. One ladder
+    launch (B3a) and one point-add launch (B3d) per tree level."""
     dev = resolve_device(device)
-    n = len(scalars)
-    if n == 0:
+    if len(scalars) == 0:
         return ed.IDENTITY
     with timed("msm"):
-        if isinstance(points, np.ndarray):
-            pts = np.asarray(points[:n], dtype=np.int64)
-        else:
-            pts = gp.points_to_limbs(points).astype(np.int64)
-        bits, pts = _norm_scalar_point(scalars, pts)
-        m = _pow2(n, MSM_MIN_LANES)
-        if m != n:
-            bits = np.concatenate(
-                [bits, np.zeros((m - n, 256), bits.dtype)])
-            pts = np.concatenate([pts, gp.identity((m - n,))])
-        out = _msm_ladder(_lane_bits(bits, dev),
-                          torch.from_numpy(pts).to(dev)).cpu().numpy()
+        bits, pts = msm_lanes(scalars, points)
+        lanes = cl.msm_ladder(_on(bits, dev), _on(pts, dev))
+        out = cl.tree_sum(lanes).cpu().numpy()
     return gp.limbs_to_point(out)
+
+
+def fixed_lanes(scalars: Sequence[int]) -> np.ndarray:
+    """What `fixed_base_mult` hands kernel B3b: packed LSB-first bits [m,
+    8] int32 of the scalars mod q, padded with zero scalars to the
+    power-of-two lane bucket."""
+    bits = fe.scalars_to_bits([int(s) % fe.Q for s in scalars],
+                              msb_first=False)
+    m = _pow2(len(scalars), FIXED_MIN_LANES)
+    return cl.pack_bits(np.concatenate(
+        [bits, np.zeros((m - len(scalars), 256), bits.dtype)]))
+
+
+def pedersen_lanes(a: int, b: int) -> np.ndarray:
+    """What `pedersen_commit_point` hands kernel B3b: one lane's packed
+    bits [1, 16] int32, a's 256 LSB-first bits then b's, against the
+    B‖H table."""
+    return cl.pack_bits(np.concatenate([
+        fe.scalars_to_bits([int(a) % fe.Q], msb_first=False),
+        fe.scalars_to_bits([int(b) % fe.Q], msb_first=False)], axis=1))
 
 
 def fixed_base_mult(scalars: Sequence[int], which: str = "B",
@@ -217,15 +213,8 @@ def fixed_base_mult(scalars: Sequence[int], which: str = "B",
     if n == 0:
         return []
     with timed("fixed_base"):
-        red = [int(s) % fe.Q for s in scalars]
-        bits = fe.scalars_to_bits(red, msb_first=False)
-        m = _pow2(n, FIXED_MIN_LANES)
-        if m != n:
-            bits = np.concatenate(
-                [bits, np.zeros((m - n, 256), bits.dtype)])
-        out = _fixed_walk(_lane_bits(bits, dev),
-                          torch.from_numpy(_fixed_table(which)).to(dev))
-        out = out.cpu().numpy()
+        out = cl.fixed_walk(_on(fixed_lanes(scalars), dev),
+                            _on(_fixed_table(which), dev)).cpu().numpy()
     return [gp.limbs_to_point(out[i]) for i in range(n)]
 
 
@@ -234,14 +223,26 @@ def pedersen_commit_point(a: int, b: int, device: Device = None) -> ed.Point:
     comb of the batched VSS / commitment equations."""
     dev = resolve_device(device)
     with timed("fixed_base"):
-        bits = np.concatenate([
-            fe.scalars_to_bits([int(a) % fe.Q], msb_first=False),
-            fe.scalars_to_bits([int(b) % fe.Q], msb_first=False),
-        ], axis=1)  # [1, 512]
         table = np.concatenate([_fixed_table("B"), _fixed_table("H")])
-        out = _fixed_walk(_lane_bits(bits, dev),
-                          torch.from_numpy(table).to(dev)).cpu().numpy()
+        out = cl.fixed_walk(_on(pedersen_lanes(a, b), dev),
+                            _on(table, dev)).cpu().numpy()
     return gp.limbs_to_point(out[0])
+
+
+def wave_cells(grids: Sequence) -> np.ndarray:
+    """What `grid_validate_sum` hands kernel B3c: the W grids' wire limbs
+    [wp, n, 2, 16] int32, padded to the power-of-two wave bucket with
+    grids of the affine identity (0, 1), which are valid and sum away."""
+    bufs = [bytes(g) if isinstance(g, (bytes, bytearray))
+            else np.ascontiguousarray(g).tobytes() for g in grids]
+    n = len(bufs[0]) // 64
+    xy = np.stack([gp.xy_bytes_to_limbs(b, n) for b in bufs])
+    w, wp = len(bufs), _pow2(len(bufs), GRID_MIN_WAVES)
+    if wp != w:
+        pad = np.zeros((wp - w, n, 2, fe.LIMBS), dtype=np.int32)
+        pad[..., 1, 0] = 1
+        xy = np.concatenate([xy, pad])
+    return xy
 
 
 def grid_validate_sum(grids: Sequence, device: Device = None
@@ -263,19 +264,11 @@ def grid_validate_sum(grids: Sequence, device: Device = None
     w = len(grids)
     if w == 0:
         return np.zeros(0, dtype=bool), None
-    bufs = [bytes(g) if isinstance(g, (bytes, bytearray))
-            else np.ascontiguousarray(g).tobytes() for g in grids]
-    n = len(bufs[0]) // 64
     with timed("grid_validate"):
-        xy = np.stack([gp.xy_bytes_to_limbs(b, n)
-                       for b in bufs])  # [w, n, 2, 16] int32
-        wp = _pow2(w, GRID_MIN_WAVES)
-        if wp != w:
-            pad = np.zeros((wp - w, n, 2, fe.LIMBS), dtype=np.int32)
-            pad[..., 1, 0] = 1  # affine identity (0, 1): valid, sums away
-            xy = np.concatenate([xy, pad])
+        xy = wave_cells(grids)
+        wp, n = xy.shape[:2]
         xy_dev = torch.from_numpy(xy).to(dev).long()
-        grid_ok, summed = _grid_sum(xy_dev)
+        grid_ok, summed = cl.grid_sum(xy_dev)
         mask = grid_ok.cpu().numpy()[:w]
         if _use_validate_kernel():
             # kernel B2's on-curve mask must agree with the host oracle's
@@ -324,9 +317,9 @@ def ext_add(acc: np.ndarray, other: np.ndarray, device: Device = None
     the accumulator fold of the incremental VSS intake."""
     dev = resolve_device(device)
     with timed("ext_add"):
-        a = torch.from_numpy(np.asarray(acc, np.int64)).to(dev)
-        b = torch.from_numpy(np.asarray(other, np.int64)).to(dev)
-        return gp.point_add(a, b).cpu().numpy()
+        return cl.point_add(_on(np.asarray(acc, np.int64), dev),
+                            _on(np.asarray(other, np.int64), dev)
+                            ).cpu().numpy()
 
 
 def shamir_recover(pinv: np.ndarray, agg: np.ndarray, device: Device = None
@@ -345,8 +338,8 @@ def shamir_recover(pinv: np.ndarray, agg: np.ndarray, device: Device = None
 
 def prewarm(grid_points: int = 0) -> None:
     """Pay the plane's one-time costs at peer start-up instead of inside
-    a round deadline: on the armed device, build kernel B2's library (on
-    the GPU), derive the fixed-base tables and run each ladder once at
+    a round deadline: on the armed device, build kernels B2's and B3's
+    libraries (on the GPU), derive the fixed-base tables and run each ladder once at
     the grid width (`grid_points` = C·k), all under
     `instrument.suppressed()` so the warm-up never shows in the round-work
     readouts. A no-op while the plane is disarmed; a failure raises."""
@@ -361,6 +354,7 @@ def prewarm(grid_points: int = 0) -> None:
             from biscotti_tpu_torch import _build
 
             _build.load("oncurve")
+            _build.load("ed25519_ladder")
         fixed_base_mult([1], device=dev)
         pedersen_commit_point(1, 1, device=dev)
         n = max(1, int(grid_points))

@@ -8,10 +8,12 @@ printed as one JSON line:
 
   1. device   card name and power limit (nvidia-smi), TF32 off for matmul
               and cuDNN;
-  2. build    both CUDA kernels built from the repo's sources by nvcc, one
-              process each, started together, with ptxas's register and
-              spill report, the on-curve kernel's SASS instruction mix and
-              the Krum Gram kernel's (its FFMA and HMMA counts);
+  2. build    the three CUDA libraries (B1, B2, B3) built from the repo's
+              sources by nvcc, one process each, started together, with
+              ptxas's register and spill report, the on-curve kernel's SASS
+              instruction mix, the Krum Gram kernel's (its FFMA and HMMA
+              counts) and each ladder kernel's (B3a-B3d, with their pipe
+              counts and registers);
   3. kernel   krum_scores kernel vs its plain PyTorch version on the card,
               random shapes up to (4096, 7850), a 30-row duplicate-tie case,
               a poison-cluster case whose accept set must be identical
@@ -61,9 +63,18 @@ printed as one JSON line:
               and sum a wave with two bad grids (B2 launched once, exactly
               those two evicted), fold a second wave with ext_add, settle
               (msm == pedersen_commit_point, and not when one scalar
-              changes); card == CPU port bit for bit on a small wave;
-              host-clock times of every entry point and one
-              torch.profiler window over the msm;
+              changes); B3's launches over that intake (every kernel at
+              least once) and over one more settle-width msm (B3a once,
+              B3d once for each of the 13 tree levels, nothing else);
+              card == CPU port bit for bit on a small wave; host-clock
+              times of every entry point; B3a-B3d against their plain
+              versions at the settle's shapes (the msm's 8,192 lanes, the
+              fixed-base walk at 4 x 256 and the Pedersen comb at 1 x 512,
+              the wave's 64 x 7,850 cells, ext_add's 7,850 pairs and the
+              msm's tree), bit for bit, each timed through its wrapper,
+              alone and plain (CUDA events) beside its bound and its
+              occupancy bound; one torch.profiler window over the msm
+              (its kernel count recorded, not gated);
   secagg      the secure-aggregation plane at the bench's mnist_100_dp_eps1
               width (d = 7,850, C = 785, k = 10, 3 miners at r = 2: 21
               shares, 7 rows a miner), the native library loaded: one
@@ -73,7 +84,8 @@ printed as one JSON line:
               VssIntakeBatch in two waves, armed on the card with
               BISCOTTI_PALLAS_CRYPTO=1 (B2 once a fold) and disarmed
               (native): the same sid evicted at the first fold, settle
-              True on both; a second batch with one corrupted share row
+              True on both, B3's launches at least 1 each armed and 0
+              disarmed (prewarm's counted apart); a second batch with one corrupted share row
               settles False on both; recover_update of the honest
               workers' aggregated shares armed and disarmed equals Σq/10⁴
               exactly; every fold, settle and recovery timed (host clock
@@ -128,12 +140,13 @@ printed as one JSON line:
               loopback TCP (1 verifier, 1 miner, 1 noiser each round; the
               verifier's pool holds every other peer's update): (a) 7
               peers, mnist softmax (d = 7,850), KRUM + noising + secure
-              aggregation on the native host crypto, 3 rounds; (b) 4
+              aggregation on the native host crypto, 3 rounds; (b) 7
               peers, the same with device_crypto armed on the card, batch
               intake and BISCOTTI_PALLAS_CRYPTO=1 (B2 once a miner's
-              fold), 1 round, and its witness: the same 4-peer round on
-              the native plane, whose chain (b)'s must equal hash for
-              hash; (c) 7 peers, mnist_cnn (d = 164,266) in plain mode
+              fold), 3 rounds, B3a, B3c and B3d launched in the rounds
+              beyond the peers' prewarms, and its witness: the same
+              rounds on the native plane, whose chain (b)'s must equal
+              hash for hash; (c) 7 peers, mnist_cnn (d = 164,266) in plain mode
               with KRUM verification, 2 rounds. Each: chains equal,
               rounds reached, non-empty blocks, each round's wall time,
               the peers' phase totals, every peer's Trainer on the card,
@@ -174,7 +187,8 @@ printed as one JSON line:
               the scan's device ms and idle share, B1 once a round at
               N = 1024 (S = 716) and never below; (c) the bench's
               crypto-kernel entry at widths 8, 35, 100, the card's msm =
-              the native one, B2's launches counted; (d) its migration
+              the native one, B2's launches counted, B3a's and B3d's at
+              least 1; (d) its migration
               entry at N = 100, 2 iterations (a move, chains equal); (e)
               one attack-matrix cell, hug × KRUM, at the matrix's operating
               point (mnist@dir0.3, 10 nodes, 3 verifiers, 8 rounds),
@@ -215,7 +229,9 @@ printed as one JSON line:
               hive's live pool, at the mesh's gathered pools and at each
               committee size of drivers (a) beside those at (716, 7850);
               B2's from the crypto and secagg phases' intakes, the live
-              miners' folds and drivers (c)).
+              miners' folds and drivers (c); B3a-B3d's from the crypto and
+              secagg intakes, live (b)'s rounds and drivers (c), each with
+              its times and bound at the settle's shape).
 
 Then the card's `name, power.limit` line as nvidia-smi prints it (the line
 the run's records are keyed by) and, last, the device JSON. Any
@@ -253,11 +269,22 @@ PIPE_LANES, ISSUE_LANES = 64, 128
 # uniform datapath's, one per warp, and not counted either
 FMA_PIPE = {"IMAD", "IMUL"}
 ALU_PIPE = {"IADD3", "LOP3", "SHF", "LEA", "ISETP", "SEL", "PLOP3", "IMNMX",
-            "PRMT"}
+            "PRMT", "P2R", "R2P"}
 EITHER_PIPE = {"VIADD"}
-NOT_COUNTED = {"MOV", "LDC", "LDG", "STG", "S2R", "CS2R", "EXIT", "BRA", "NOP",
-               "HFMA2", "BSSY", "BSYNC"}
+NOT_COUNTED = {"MOV", "LDC", "LDG", "STG", "LDL", "STL", "S2R", "CS2R", "EXIT",
+               "BRA", "NOP", "HFMA2", "BSSY", "BSYNC"}
 KERNEL_SHAPES = [(8, 16), (130, 50), (716, 7850), (1024, 7850), (4096, 7850)]
+# kernel B3, the ladder library's four kernels (csrc/ed25519_ladder.cu): the
+# wrapper of each, and the jitted program of the reference that it replaces
+LADDER = {
+    "B3a": ("msm_ladder_kernel", "msm_ladder",
+            "biscotti_tpu/crypto/kernels/primitives.py:116"),
+    "B3b": ("fixed_walk_kernel", "fixed_walk",
+            "biscotti_tpu/crypto/kernels/primitives.py:134"),
+    "B3c": ("grid_points_kernel", "grid_validate_points",
+            "biscotti_tpu/crypto/kernels/primitives.py:155"),
+    "B3d": ("point_add_kernel", "point_add",
+            "biscotti_tpu/crypto/kernels/primitives.py:176")}
 EXACT_SLACK = 1.1
 # the VSS intake at the bench's mnist secure-aggregation width
 # (bench.py:849-858: N = 100, sample_percent 0.70; config.py:170)
@@ -269,10 +296,9 @@ LEDGER_ROUNDS = 5
 # accepted updates a plain-mode mnist_cnn block carries in the ledger phase
 LEDGER_CNN_ROWS = 70
 LEDGER_CODECS = ("raw64", "f32+zlib")
-# peers of clusters (a) and (c): a verifier's pool of 5, Krum's least pool
-# that scores on a neighbour (k = n - f - 2 = 1); (b) and its witness take 4
+# peers of every live cluster: a verifier's pool of 5, Krum's least pool
+# that scores on a neighbour (k = n - f - 2 = 1)
 LIVE_PEERS = 7
-LIVE_ARMED_PEERS = 4
 LIVE_BASE_PORT = 17500
 # the hive phase: (a) the reference's density entry at N = 100 (its CLI's
 # default ports, 8000 + id), (b) 100 mnist_cnn peers, (c) N = 528, whose
@@ -313,32 +339,24 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def oncurve_bound(n: int, mix):
-    """(ms, what bounds it, the counts): the least time for the on-curve
-    mask of n cells, the larger of the bytes (each cell's 32 int64 limbs
-    read once, its 1-byte verdict written once) over the memory rate and
-    the cell's integer instructions over the rate of the pipes that run
-    them. `mix` is the kernel's own SASS mix, {opcode: count}, as
-    `sass_mix` reads it from the library this run built. The kernel has no
-    loop and no data-dependent branch, so every cell issues the whole
-    listing once. Per cell:
+def pipe_counts(mix) -> dict:
+    """{fma, alu, either, issued}: what one thread's run through a SASS
+    listing (`mix`, {opcode: count}, as `sass_mix` reads it from the
+    library this run built) puts on the integer pipes:
       * fma: the FMA pipe's lane-passes, IMAD and IMUL, each IMAD.WIDE (a
         limb product with a 64-bit result) counted twice for its two
         passes; IMAD.MOV is a move;
       * alu: the ALU pipe's adds, logic, shifts, LEA, compares and selects;
-      * issued: every counted instruction once.
-    The pipes run at once, so a cell needs max(fma / 64, alu / 64,
-    issued / 128) clocks of an SM. VIADD may go to either pipe: the
-    bound takes the placement that gives the least time, so it holds
-    wherever VIADD runs. Moves, loads, the store, the uniform datapath and
+      * either: VIADD, which may go to either pipe;
+      * issued: every counted instruction once;
+      * unknown: {opcode: count} of what no pipe set names (counted as
+        issued only, which can only lower a bound).
+    Moves, loads, stores (local memory too), the uniform datapath and
     control instructions are not counted."""
     if not isinstance(mix, dict):
-        raise AssertionError(f"oncurve_bound needs the kernel's SASS mix: {mix}")
-    if mix.get("BRA", 0) > 1:
-        raise AssertionError("the on-curve kernel's SASS has a branch besides "
-                             "its final one: the per-cell count needs its "
-                             "trip count")
+        raise AssertionError(f"pipe_counts needs the kernel's SASS mix: {mix}")
     fma = alu = either = issued = 0
+    unknown: dict = {}
     for op, count in mix.items():
         base = op.split(".")[0]
         if base in NOT_COUNTED or base.startswith("U") \
@@ -350,19 +368,121 @@ def oncurve_bound(n: int, mix):
             alu += count
         elif base in EITHER_PIPE:
             either += count
-        else:
-            raise AssertionError(f"oncurve_bound: no pipe known for {op}")
+        else:  # an issue slot at least, and named in the counts
+            unknown[op] = count
         issued += count
-    clocks = min(max((fma + f) / PIPE_LANES, (alu + either - f) / PIPE_LANES,
-                     issued / ISSUE_LANES) for f in (0, either))
+    return {"fma": fma, "alu": alu, "either": either, "issued": issued,
+            "unknown": unknown}
+
+
+def pipe_clocks(c: dict) -> float:
+    """SM clocks for work of pipe counts `c`: the pipes run at once, so
+    max(fma / 64, alu / 64, issued / 128) lanes a clock, with VIADD placed
+    where it gives the least time, so the bound holds wherever it runs."""
+    e = c["either"]
+    return min(max((c["fma"] + f) / PIPE_LANES,
+                   (c["alu"] + e - f) / PIPE_LANES,
+                   c["issued"] / ISSUE_LANES) for f in (0, e))
+
+
+def oncurve_bound(n: int, mix):
+    """(ms, what bounds it, the counts): the least time for the on-curve
+    mask of n cells, the larger of the bytes (each cell's 32 int64 limbs
+    read once, its 1-byte verdict written once) over the memory rate and
+    the cell's integer instructions (`pipe_counts` of the kernel's own
+    SASS mix) over the rate of the pipes that run them. The kernel has no
+    loop and no data-dependent branch, so every cell issues the whole
+    listing once."""
+    if isinstance(mix, dict) and mix.get("BRA", 0) > 1:
+        raise AssertionError("the on-curve kernel's SASS has a branch besides "
+                             "its final one: the per-cell count needs its "
+                             "trip count")
+    c = pipe_counts(mix)
+    clocks = pipe_clocks(c)
     ops_ms = 1e3 * n * clocks / (SMS * CLOCK_HZ)
     bytes_ms = 1e3 * n * (2 * 16 * 8 + 1) / PEAK_BYTES_PER_S
-    counts = {"fma": fma, "alu": alu, "either": either, "issued": issued,
-              "sm_clocks_per_cell": clocks, "ops_ms": ops_ms,
+    counts = {**c, "sm_clocks_per_cell": clocks, "ops_ms": ops_ms,
               "bytes_ms": bytes_ms}
     if ops_ms >= bytes_ms:
         return ops_ms, "operations", counts
     return bytes_ms, "bytes", counts
+
+
+PIPES = ("fma", "alu", "either", "issued")
+
+
+def scaled(c: dict, k) -> dict:
+    return {key: k * c[key] for key in PIPES}
+
+
+def summed(*cs: dict) -> dict:
+    return {key: sum(c[key] for c in cs) for key in PIPES}
+
+
+def ladder_step_counts(mixes: dict) -> dict:
+    """{"add": ..., "double": ...}: the pipe counts of one point add and
+    one double, from the ladder library's SASS. B3d's listing is one add
+    (with its two point loads and store); B3a's is one double and one add
+    (its 256-step loop is not unrolled: checked), so the double is B3a's
+    counts less B3d's, pipe by pipe. What the subtraction leaves out (a
+    point's load and range check) only lowers the bound."""
+    add = pipe_counts(mixes["B3d"])
+    msm = pipe_counts(mixes["B3a"])
+    if not add["fma"] < msm["fma"] < 2 * add["fma"]:
+        raise AssertionError(f"B3a's SASS is not one double and one add: "
+                             f"{msm} against B3d's {add}")
+    return {"add": add,
+            "double": {k: max(0, msm[k] - add[k]) for k in PIPES}}
+
+
+def ladder_bound(work: dict, nbytes: int, warp_threads=None,
+                 warps: int = 0) -> dict:
+    """The least time for a ladder kernel's work: the larger of `work`
+    (pipe counts summed over every thread this run's data needs) over the
+    card's integer pipes and `nbytes` (each input read once, each output
+    written once) over its memory rate. With `warp_threads` (the pipe
+    counts of the busiest warp's threads: a warp issues every step that any
+    of its lanes needs) and `warps`, also the occupancy bound: one warp
+    keeps one of an SM's four schedulers, which issues a warp instruction a
+    clock and puts 16 lanes a clock through each pipe, and a scheduler runs
+    ceil(warps / (4 SMs)) warps in turn."""
+    ops_ms = 1e3 * pipe_clocks(work) / (SMS * CLOCK_HZ)
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    out = {"bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "ops_ms": ops_ms, "bytes_ms": bytes_ms, "bound_counts": work}
+    if warp_threads is not None:
+        per_sched = -(-warps // (4 * SMS))
+        clocks = 4 * pipe_clocks(scaled(warp_threads, 32))
+        out["occupancy_bound_ms"] = 1e3 * clocks * per_sched / CLOCK_HZ
+        out["warps_per_scheduler"] = per_sched
+    return out
+
+
+def warp_set_steps(bits: np.ndarray) -> np.ndarray:
+    """[m, words] packed bits (m a multiple of 32, or fewer lanes) → the
+    number of steps each warp of 32 lanes takes the add: steps where any
+    of its lanes has its bit set."""
+    words = bits.view(np.uint32)
+    m = len(words)
+    w = words.reshape(-1, min(m, 32), words.shape[1])
+    union = np.bitwise_or.reduce(w, axis=1)  # [warps, words]
+    return np.unpackbits(union.view(np.uint8), axis=1).sum(axis=1)
+
+
+def ptxas_registers(log: str) -> dict:
+    """{kernel: registers} from nvcc's -Xptxas=-v report."""
+    import re
+
+    regs, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            current = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            regs[current] = int(m.group(1))
+    return regs
 
 
 def sass_mix(lib, kernel: str):
@@ -581,7 +701,136 @@ def crypto_kernel_phase(dev, grid: np.ndarray, mix) -> dict:
     return row
 
 
-def crypto_phase(dev, grid: np.ndarray, a, b) -> dict:
+def ladder_rows(dev, ladder: dict, wave1, gam, acc, summed1, summed2,
+                fixed_scalars, pedersen_ab) -> dict:
+    """Kernels B3a-B3d against their plain versions on the card at the
+    settle's full-width shapes (the msm's 8,192 lanes, the fixed-base walk
+    at 4 x 256 and the Pedersen comb at 1 x 512, the wave's 64 x 7,850
+    cells, ext_add's 7,850 pairs and the msm's 13-level tree), bit for
+    bit; each timed through its wrapper, alone (the C interface on outputs
+    allocated once) and plain (CUDA events, median of 20; the plain
+    ladders, ~1e5 launches a call, median of 3), beside its bound.
+    `ladder` is the build phase's SASS mixes and registers. Launches made
+    here are comparisons, not main-path launches. Returns {id: [rows]}."""
+    import torch
+
+    from biscotti_tpu_torch import _build
+    from biscotti_tpu_torch.crypto.kernels import cuda_ladder as cl
+    from biscotti_tpu_torch.crypto.kernels import primitives as prim
+
+    lib = _build.load("ed25519_ladder")
+    stream = torch.cuda.current_stream().cuda_stream
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    step = ladder_step_counts(ladder["sass"])
+    add, dbl = step["add"], step["double"]
+    rows: dict = {}
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def record(kid, shape, got, want, wrapper, alone, plain, bound,
+               plain_reps=20):
+        torch.cuda.synchronize()
+        mism = sum(int((g != w).sum()) for g, w in zip(got, want))
+        err = max(float((g.long() - w.long()).abs().max()) for g, w
+                  in zip(got, want))
+        r = {"kernel": kid, "shape": shape, "mismatches": mism,
+             "max_abs_err": err, "ms": time_ms(wrapper),
+             "kernel_only_ms": time_ms(alone) if alone else
+             "not measured: one launch a level",
+             "plain_ms": time_ms(plain, reps=plain_reps),
+             "registers": ladder["registers"].get(kid), **bound}
+        if int(flag):
+            raise AssertionError(f"{kid} flagged a limb of its own inputs")
+        emit("crypto", **r)
+        rows.setdefault(kid, []).append(r)
+        if mism:
+            raise AssertionError(f"{kid} differs from its plain version at "
+                                 f"{shape} in {mism} places")
+
+    # B3a: the settle's msm lanes
+    bits_np, pts_np = prim.msm_lanes(gam, acc)
+    m, words = bits_np.shape
+    bits, pts = on(bits_np), on(pts_np)
+    out = torch.empty_like(pts)
+    lanes = cl.msm_ladder(bits, pts)
+    pop = int(np.unpackbits(bits_np.view(np.uint8)).sum())
+    record("B3a", [m, 4 * words * 8], (lanes,),
+           (cl.msm_ladder_plain(bits, pts),),
+           lambda: cl.msm_ladder(bits, pts),
+           lambda: lib.ed25519_msm_ladder(bits.data_ptr(), words,
+                                          pts.data_ptr(), out.data_ptr(),
+                                          flag.data_ptr(), m, stream),
+           lambda: cl.msm_ladder_plain(bits, pts),
+           ladder_bound(summed(scaled(dbl, 256 * m), scaled(add, pop)),
+                        bits.nbytes + 2 * pts.nbytes,
+                        summed(scaled(dbl, 256),
+                               scaled(add, int(warp_set_steps(bits_np).max()))),
+                        -(-m // 32)), plain_reps=3)
+
+    # B3b: fixed_base_mult's 4 lanes and the Pedersen comb's one
+    for bits_np, table_np in ((prim.fixed_lanes(fixed_scalars[:4]),
+                               prim._fixed_table("B")),
+                              (prim.pedersen_lanes(*pedersen_ab),
+                               np.concatenate([prim._fixed_table("B"),
+                                               prim._fixed_table("H")]))):
+        m, words = bits_np.shape
+        bits, table = on(bits_np), on(table_np)
+        out = torch.empty((m, 4, 16), dtype=torch.int64, device=dev)
+        pop = int(np.unpackbits(bits_np.view(np.uint8)).sum())
+        record("B3b", [m, 32 * words], (cl.fixed_walk(bits, table),),
+               (cl.fixed_walk_plain(bits, table),),
+               lambda: cl.fixed_walk(bits, table),
+               lambda: lib.ed25519_fixed_walk(bits.data_ptr(), words,
+                                              table.data_ptr(), out.data_ptr(),
+                                              flag.data_ptr(), m, stream),
+               lambda: cl.fixed_walk_plain(bits, table),
+               ladder_bound(scaled(add, pop), bits.nbytes + table.nbytes
+                            + out.nbytes,
+                            scaled(add, int(warp_set_steps(bits_np).max())),
+                            -(-m // 32)), plain_reps=3)
+
+    # B3c: the first wave's cells, two bad grids among them
+    xy = on(prim.wave_cells(wave1)).long()
+    cells = xy.numel() // 32
+    ok = torch.empty(xy.shape[:2], dtype=torch.bool, device=dev)
+    gpts = torch.empty(xy.shape[:2] + (4, 16), dtype=torch.int64, device=dev)
+    record("B3c", list(xy.shape[:2]), cl.grid_validate_points(xy),
+           cl.grid_points_plain(xy),
+           lambda: cl.grid_validate_points(xy),
+           lambda: lib.ed25519_grid_points(xy.data_ptr(), ok.data_ptr(),
+                                           gpts.data_ptr(), flag.data_ptr(),
+                                           cells, stream),
+           lambda: cl.grid_points_plain(xy),
+           ladder_bound(scaled(pipe_counts(ladder["sass"]["B3c"]), cells),
+                        cells * (2 * 16 * 8 + 1 + 4 * 16 * 8)))
+
+    # B3d: ext_add's pairs, then the msm's whole tree
+    s1, s2 = on(summed1), on(summed2)
+    n = len(s1)
+    out = torch.empty_like(s1)
+    record("B3d", [n, 4, 16], (cl.point_add(s1, s2),),
+           (cl.point_add_plain(s1, s2),),
+           lambda: cl.point_add(s1, s2),
+           lambda: lib.ed25519_point_add(s1.data_ptr(), s2.data_ptr(),
+                                         out.data_ptr(), flag.data_ptr(), n,
+                                         stream),
+           lambda: cl.point_add_plain(s1, s2),
+           ladder_bound(scaled(add, n), 3 * s1.nbytes))
+
+    def plain_tree(t):
+        while len(t) > 1:
+            t = cl.point_add_plain(t[:len(t) // 2], t[len(t) // 2:])
+        return t[0]
+
+    m = len(lanes)
+    record("B3d", ["tree", m], (cl.tree_sum(lanes),), (plain_tree(lanes),),
+           lambda: cl.tree_sum(lanes), None, lambda: plain_tree(lanes),
+           ladder_bound(scaled(add, m - 1), 3 * (m - 1) * 4 * 16 * 8))
+    return rows
+
+
+def crypto_phase(dev, grid: np.ndarray, a, b, ladder: dict) -> dict:
     """The device crypto plane in VssIntakeBatch's order at full width,
     then card vs CPU, times and a profile of the settle's msm."""
     import torch
@@ -589,6 +838,7 @@ def crypto_phase(dev, grid: np.ndarray, a, b) -> dict:
 
     from biscotti_tpu_torch.crypto import ed25519 as ed
     from biscotti_tpu_torch.crypto.commitments import _xy_to_point
+    from biscotti_tpu_torch.crypto.kernels import cuda_ladder as cl
     from biscotti_tpu_torch.crypto.kernels import cuda_validate as cv
     from biscotti_tpu_torch.crypto.kernels import group as gp
     from biscotti_tpu_torch.crypto.kernels import primitives as prim
@@ -617,6 +867,7 @@ def crypto_phase(dev, grid: np.ndarray, a, b) -> dict:
     # the intake, launches counted from 0: two wave folds and the settle
     os.environ["BISCOTTI_PALLAS_CRYPTO"] = "1"
     cv.oncurve_mask.launches = 0
+    cl.reset_launches()
     t0 = time.perf_counter()
     mask1, summed1 = prim.grid_validate_sum(wave1)
     wave1_launches = cv.oncurve_mask.launches
@@ -624,14 +875,20 @@ def crypto_phase(dev, grid: np.ndarray, a, b) -> dict:
     acc = prim.ext_add(summed1, summed2)
     m = int(mask1.sum()) + int(mask2.sum())
     rhs = prim.msm(gam, acc)
-    lhs = prim.pedersen_commit_point(m * sum(g * s for g, s in zip(gam, a)),
-                                     m * sum(g * s for g, s in zip(gam, b)))
+    comb = (m * sum(g * s for g, s in zip(gam, a)),
+            m * sum(g * s for g, s in zip(gam, b)))
+    lhs = prim.pedersen_commit_point(*comb)
     settled = ed.point_equal(lhs, rhs)
     intake_s = time.perf_counter() - t0
     launches = cv.oncurve_mask.launches
     gam_bad = list(gam)
     gam_bad[17] = (gam_bad[17] + 1) % ed.Q
     perturbed = ed.point_equal(lhs, prim.msm(gam_bad, acc))
+    b3_launches = cl.launches()  # the folds, the settle, the perturbed one
+    # one settle-width msm: one ladder launch and one add a tree level
+    cl.reset_launches()
+    prim.msm(gam, acc)
+    msm_launches = cl.launches()
 
     # card against the CPU port on a small wave (the switch still on)
     ns = min(64, n)
@@ -672,7 +929,13 @@ def crypto_phase(dev, grid: np.ndarray, a, b) -> dict:
     times["shamir_recover_s"], recovered = host_s(
         lambda: prim.shamir_recover(pinv, vander @ coeffs.T))
 
-    # one profiled msm: the 256-step ladder's device time and launches
+    # B3a-B3d against their plain versions at these shapes, timed
+    ladder_kernels = ladder_rows(dev, ladder, wave1, gam, acc, summed1,
+                                 summed2, a, comb)
+
+    # one profiled msm: the ladder's device time and launches (late
+    # profiler windows have dropped ctypes-launched kernels before:
+    # recorded, not gated)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         prim.msm(gam, acc)
@@ -694,12 +957,14 @@ def crypto_phase(dev, grid: np.ndarray, a, b) -> dict:
            "wave1_mask_false": [int(i) for i in np.flatnonzero(~mask1)],
            "wave2_all_true": bool(mask2.all()), "valid_members": m,
            "oncurve_launches": launches, "wave1_launches": wave1_launches,
+           "b3_launches": b3_launches, "settle_msm_launches": msm_launches,
            "settled": settled, "perturbed_settles": perturbed,
            "intake_s": intake_s, "card_vs_cpu": parity,
            "shamir_exact": bool(np.array_equal(recovered, coeffs)),
            "times": times, "msm_profile": msm_profile,
            "seconds": time.perf_counter() - t_phase}
     emit("crypto", **row)
+    row["ladder"] = ladder_kernels  # emitted row by row above
     if row["wave1_mask_false"] != list(bad) or not row["wave2_all_true"]:
         raise AssertionError("grid validation evicted the wrong grids")
     if wave1_launches != 1 or launches != 2:
@@ -708,6 +973,15 @@ def crypto_phase(dev, grid: np.ndarray, a, b) -> dict:
                              "intake, not once per fold")
     if not settled or perturbed:
         raise AssertionError("the settle does not hold the RLC equation")
+    lanes = prim._pow2(n, prim.MSM_MIN_LANES)
+    if msm_launches != {"msm_ladder": 1, "fixed_walk": 0,
+                        "grid_validate_points": 0,
+                        "point_add": lanes.bit_length() - 1}:
+        raise AssertionError(f"a settle-width msm launched {msm_launches}, "
+                             "not B3a once and B3d once a tree level")
+    if min(b3_launches.values()) < 1:
+        raise AssertionError(f"the intake did not launch every B3 kernel: "
+                             f"{b3_launches}")
     if not all(v for k, v in parity.items() if k != "mask") \
             or parity["mask"] != [True, False, True]:
         raise AssertionError("card and CPU port disagree on the crypto plane")
@@ -764,6 +1038,7 @@ def secagg_phase(dev) -> dict:
     from biscotti_tpu_torch.crypto import _native
     from biscotti_tpu_torch.crypto import commitments as cm
     from biscotti_tpu_torch.crypto import kernels
+    from biscotti_tpu_torch.crypto.kernels import cuda_ladder as cl
     from biscotti_tpu_torch.crypto.kernels import cuda_validate as cv
     from biscotti_tpu_torch.ops import secretshare as ss
 
@@ -812,13 +1087,17 @@ def secagg_phase(dev) -> dict:
     os.environ["BISCOTTI_PALLAS_CRYPTO"] = "1"
     kernels.set_enabled(True)
     try:
+        cl.reset_launches()
         t0 = time.perf_counter()
         kernels.prewarm(d)
         prewarm_s = time.perf_counter() - t0
+        prewarm_b3 = cl.launches()
         cv.oncurve_mask.launches = 0
+        cl.reset_launches()
         card = _settled_intake(members, waves, xs, rows, ent)
         card_bad = _settled_intake(corrupt, [honest], xs, rows, ent)
         b2_launches = cv.oncurve_mask.launches
+        b3_launches = cl.launches()
         agg = ss.aggregate_shares(np.stack([made[s][3] for s in honest]))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -827,8 +1106,10 @@ def secagg_phase(dev) -> dict:
     finally:
         kernels.set_enabled(False)
         os.environ.pop("BISCOTTI_PALLAS_CRYPTO")
+    cl.reset_launches()
     cpu = _settled_intake(members, waves, xs, rows, ent)
     cpu_bad = _settled_intake(corrupt, [honest], xs, rows, ent)
+    cpu_b3 = cl.launches()
     t0 = time.perf_counter()
     rec_cpu = ss.recover_update(agg, xs_all, d)
     rec_cpu_s = time.perf_counter() - t0
@@ -848,7 +1129,8 @@ def secagg_phase(dev) -> dict:
            "card": run_row(card), "cpu_native": run_row(cpu),
            "corrupted_row": {"card": run_row(card_bad),
                              "cpu_native": run_row(cpu_bad)},
-           "b2_launches": b2_launches,
+           "b2_launches": b2_launches, "b3_launches": b3_launches,
+           "b3_launches_prewarm": prewarm_b3,
            "recover_card_exact": bool(np.array_equal(rec_card, want)),
            "recover_cpu_exact": bool(np.array_equal(rec_cpu, want)),
            "recover_card_s": rec_card_s, "recover_cpu_s": rec_cpu_s,
@@ -866,6 +1148,9 @@ def secagg_phase(dev) -> dict:
                              "not once a fold")
     if cpu[1] != [0, 0] or cpu_bad[1] != [0]:
         raise AssertionError("B2 launched on the disarmed intake")
+    if min(b3_launches.values()) < 1 or any(cpu_b3.values()):
+        raise AssertionError(f"B3 launched {b3_launches} armed and {cpu_b3} "
+                             "disarmed: every kernel armed, none disarmed")
     if not card[2] or card[3] != honest or card_bad[3] != honest:
         raise AssertionError("the honest intake did not settle True")
     if card_bad[2] or cpu_bad[2]:
@@ -1480,6 +1765,27 @@ def ledger_phase(dev, sim, w, stake, cnn_rows: dict, first_round: int) -> dict:
     return out
 
 
+def free_base(port: int, n: int) -> int:
+    """The first base port from `port` up whose n ports 127.0.0.1 can bind
+    now, as the peers' servers bind them (SO_REUSEADDR): the card
+    machine's ephemeral range reaches into the live and hive clusters'
+    ports, and an outbound socket of an earlier cluster in this process can
+    hold one past RPCServer.start's retry window (17526 once, after live
+    (b)'s 7-peer rounds; 18082 once, at hive (b))."""
+    import socket
+
+    for base in range(port, 65536 - n):
+        try:
+            for p in range(base, base + n):
+                with socket.socket() as s:
+                    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                    s.bind(("127.0.0.1", p))
+        except OSError:
+            continue
+        return base
+    raise AssertionError(f"no {n} free ports from {port} up")
+
+
 def live_cluster(name: str, port: int, timeouts: dict, peers: int,
                  **kw) -> dict:
     """`peers` port PeerAgents on the card (device None: the GPU) in one
@@ -1494,6 +1800,7 @@ def live_cluster(name: str, port: int, timeouts: dict, peers: int,
 
     from biscotti_tpu_torch.config import BiscottiConfig, Defense, Timeouts
 
+    port = free_base(port, peers)
     base = dict(num_nodes=peers, base_port=port, num_verifiers=1,
                 num_miners=1, num_noisers=1, sample_percent=1.0,
                 convergence_error=0.0, seed=0, defense=Defense.KRUM,
@@ -1521,7 +1828,8 @@ def live_cluster(name: str, port: int, timeouts: dict, peers: int,
     verdicts = sorted([v["it"], len(v["src"]), sum(v["accept"])]
                       for r in results
                       for v in r["telemetry"].get("trust", {}).get("stream", []))
-    row = {"cluster": name, "peers": peers, "dataset": cfgs[0].dataset,
+    row = {"cluster": name, "peers": peers, "base_port": port,
+           "dataset": cfgs[0].dataset,
            "model": cfgs[0].model_name or "default",
            "params": agents[0].trainer.num_params,
            "devices": sorted({str(a.trainer.x_test.device) for a in agents}),
@@ -1594,13 +1902,17 @@ def live_seam() -> dict:
     return {"params": d, "masks": rows}
 
 
-def live_phase() -> dict:
+def live_phase(prewarm_b3: dict) -> dict:
     """The live peer on the card: clusters (a), (b) with its witness and
-    (c) of the module docstring and the verifier seam; returns the phase's row with B2's
-    launches in (b)."""
+    (c) of the module docstring and the verifier seam; returns the phase's
+    row with B2's and B3's launches in (b). `prewarm_b3` is one prewarm's
+    B3 launches at this width (the secagg phase's), which every armed peer
+    makes before its first round; (b)'s round launches are those beyond
+    them."""
     import torch
 
     from biscotti_tpu_torch.crypto import kernels
+    from biscotti_tpu_torch.crypto.kernels import cuda_ladder as cl
     from biscotti_tpu_torch.crypto.kernels import cuda_validate as cv
 
     t_phase = time.perf_counter()
@@ -1611,30 +1923,29 @@ def live_phase() -> dict:
     a = live_cluster("a_secagg_native", LIVE_BASE_PORT, fast, LIVE_PEERS,
                      max_iterations=3, **secagg)
     emit("live", **a)
-    # (b)'s witness: its round on the native host plane. Every peer of
+    # (b)'s witness: its rounds on the native host plane. Every peer of
     # both draws from seed 0, and the plane decides only which commitments
     # and grids pass, so the chains must agree hash for hash; a plane that
     # refused a valid grid, or passed everything, would part them
     w = live_cluster("b_witness_native", LIVE_BASE_PORT + 30, fast,
-                     LIVE_ARMED_PEERS, max_iterations=1, batch_intake=True,
+                     LIVE_PEERS, max_iterations=3, batch_intake=True,
                      **secagg)
     emit("live", **w)
-    # (b): the armed plane settles a 7,850-point intake in ~4-5 s on the
-    # card (PERF.md §5), each peer's prewarm runs the ladders once more,
-    # and four peers' ladders share one GIL: the round took 105-134 s on
-    # the H100, and at 120 s of block window one run lost its block to the
-    # empty-block timer. These windows cost nothing when no deadline is
-    # reached
+    # (b): the armed plane, whose ladders are kernel B3 since it replaced
+    # the eager ones (1e5 launches an msm, a 105 s round at 4 peers). The
+    # long windows stay: they cost nothing when no deadline is reached
     armed = dict(update_s=120.0, block_s=300.0, krum_s=120.0, share_s=120.0,
                  rpc_s=120.0)
     os.environ["BISCOTTI_PALLAS_CRYPTO"] = "1"
     kernels.reset_counters()
     cv.oncurve_mask.launches = 0
+    cl.reset_launches()
     try:
         b = live_cluster("b_secagg_device_crypto", LIVE_BASE_PORT + 10, armed,
-                         LIVE_ARMED_PEERS, max_iterations=1,
-                         device_crypto=True, batch_intake=True, **secagg)
+                         LIVE_PEERS, max_iterations=3, device_crypto=True,
+                         batch_intake=True, **secagg)
         b["b2_launches"] = cv.oncurve_mask.launches
+        b["b3_launches"] = cl.launches()
         b["device_crypto_calls"] = kernels.device_calls()
         b["device_crypto_seconds"] = kernels.device_seconds()
         b["armed_device"] = kernels.armed_device().type
@@ -1644,6 +1955,8 @@ def live_phase() -> dict:
     # every grid_validate_sum call of a miner's fold launches B2 once
     # (prewarm's launches are on top: it runs under the same switch)
     b["b2_fold_launches"] = b["device_crypto_calls"].get("grid_validate", 0)
+    b["b3_round_launches"] = {k: v - LIVE_PEERS * prewarm_b3[k]
+                              for k, v in b["b3_launches"].items()}
     b["chain_equals_witness"] = b["chain"] == w["chain"]
     emit("live", **b)
     if not (b["b2_fold_launches"] >= 1
@@ -1651,6 +1964,10 @@ def live_phase() -> dict:
             and b["armed_device"] == "cuda"):
         raise AssertionError(f"live cluster (b) did not run B2 in its "
                              f"miners' folds on the card: {b}")
+    if min(b["b3_round_launches"][k] for k in
+           ("msm_ladder", "grid_validate_points", "point_add")) < 1:
+        raise AssertionError(f"live cluster (b)'s rounds did not launch B3a, "
+                             f"B3c and B3d: {b['b3_round_launches']}")
     if not b["chain_equals_witness"]:
         raise AssertionError(f"live cluster (b)'s chain is not its native "
                              f"witness's: {b['chain']} vs {w['chain']}")
@@ -1662,6 +1979,7 @@ def live_phase() -> dict:
     emit("live", cluster="verifier_seam", **seam)
     torch.cuda.synchronize()
     return {"b2_launches": b["b2_launches"],
+            "b3_launches": b["b3_round_launches"],
             "seconds": time.perf_counter() - t_phase}
 
 
@@ -1702,7 +2020,8 @@ def hive_cell(name: str, cfg, pool_hook: bool = False):
     for r in results:
         for ph, v in r["phases"].items():
             phases[ph] = phases.get(ph, 0.0) + v["total_s"]
-    row = {"cell": name, "peers": cfg.num_nodes, "dataset": cfg.dataset,
+    row = {"cell": name, "peers": cfg.num_nodes, "base_port": cfg.base_port,
+           "dataset": cfg.dataset,
            "model": cfg.model_name or "default",
            "params": hive.agents[0].trainer.num_params,
            "device": str(hive.device),
@@ -1764,7 +2083,8 @@ def hive_phase(dev) -> dict:
         raise AssertionError(f"hive (a): the density entry failed: {a}")
 
     def cell_cfg(n: int, port: int, rounds: int, **kw):
-        cfg = BiscottiConfig(num_nodes=n, dataset="mnist", base_port=port,
+        cfg = BiscottiConfig(num_nodes=n, dataset="mnist",
+                             base_port=free_base(port, n),
                              num_verifiers=1, num_miners=1, num_noisers=1,
                              secure_agg=False, noising=False,
                              verification=True, defense=Defense.KRUM,
@@ -1881,6 +2201,7 @@ def drivers_phase(dev) -> dict:
 
     from biscotti_tpu_torch import bench
     from biscotti_tpu_torch.config import Defense
+    from biscotti_tpu_torch.crypto.kernels import cuda_ladder as cl
     from biscotti_tpu_torch.crypto.kernels import cuda_validate as cv
     from biscotti_tpu_torch.eval import eval_krum_kernel, eval_sim_scale
     from biscotti_tpu_torch.ops import krum_cuda
@@ -1925,12 +2246,17 @@ def drivers_phase(dev) -> dict:
     # (c) the crypto-kernel entry: the card's msm = the native one
     t0 = time.perf_counter()
     b2_before = cv.oncurve_mask.launches
+    cl.reset_launches()
     crypto = bench.bench_crypto_kernel(DRIVER_MSM_WIDTHS, device=dev)
     c_b2 = cv.oncurve_mask.launches - b2_before
+    c_b3 = cl.launches()
     emit("drivers", cell="crypto_kernel", seconds=time.perf_counter() - t0,
-         b2_launches=c_b2, **crypto)
+         b2_launches=c_b2, b3_launches=c_b3, **crypto)
     if not all(r["results_equal"] for r in crypto.values()):
         raise AssertionError(f"the card's msm differs from the native: {crypto}")
+    if c_b3["msm_ladder"] < 1 or c_b3["point_add"] < 1:
+        raise AssertionError(f"the crypto entry's msm ran without B3a and "
+                             f"B3d: {c_b3}")
 
     # (d) the migration entry at N = 100
     t0 = time.perf_counter()
@@ -1983,9 +2309,9 @@ def drivers_phase(dev) -> dict:
     torch.cuda.synchronize()
     emit("drivers", cell="done", seconds=time.perf_counter() - t_phase,
          b1_launches={"krum_kernel": a_launches, "sim_scale": b_launches},
-         b2_launches_crypto_kernel=c_b2)
+         b2_launches_crypto_kernel=c_b2, b3_launches_crypto_kernel=c_b3)
     return {"b1_krum_kernel": a_launches, "b1_sim_scale": b_launches,
-            "b2_crypto_kernel": c_b2,
+            "b2_crypto_kernel": c_b2, "b3_crypto_kernel": c_b3,
             "krum_by_n": {r["n"]: r for r in rows}}
 
 
@@ -2254,6 +2580,39 @@ def entry_phase() -> dict:
     return row
 
 
+def ladder_line(crypto: dict, secagg: dict, live: dict, drivers: dict):
+    """The kernels line's rows of B3a-B3d: launches on the main paths by
+    phase (the crypto intake, secagg's armed intakes, live (b)'s rounds
+    beyond the peers' prewarms, drivers (c)'s msm), and the times and
+    bound at the shape the settle gives each (B3a's 8,192 lanes, B3b's
+    Pedersen comb at 1 x 512, B3c's 64 x 7,850 cells, B3d's ext_add of
+    7,850 pairs), the other shapes under `at`."""
+    rows = []
+    for kid, (_, wrapper, replaces) in LADDER.items():
+        by_phase = {"crypto": crypto["b3_launches"][wrapper],
+                    "secagg": secagg["b3_launches"][wrapper],
+                    "live": live["b3_launches"][wrapper],
+                    "drivers": drivers["b3_crypto_kernel"][wrapper]}
+        timed = crypto["ladder"][kid]
+        main = timed[-1] if kid == "B3b" else timed[0]
+        rows.append({
+            "name": f"ed25519_{wrapper}", "id": kid, "route": "cuda",
+            "source": "biscotti_tpu_torch/csrc/ed25519_ladder.cu",
+            "replaces": replaces, "launches": sum(by_phase.values()),
+            "launches_by_phase": by_phase, "shape": main["shape"],
+            "max_abs_err": max(r["max_abs_err"] for r in timed),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "kernel_only_ms": main["kernel_only_ms"],
+            "occupancy_bound_ms": main.get("occupancy_bound_ms"),
+            "registers": main["registers"],
+            "at": [{k: r.get(k) for k in ("shape", "ms", "kernel_only_ms",
+                                           "plain_ms", "bound_ms", "bound_by",
+                                           "occupancy_bound_ms")}
+                   for r in timed if r is not main]})
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -2288,12 +2647,21 @@ def main() -> int:
         logs = dict(zip(_build.KERNELS, pool.map(_build.build, _build.KERNELS)))
     oncurve_sass = sass_mix(_build.library_path("oncurve"), "oncurve_kernel")
     krum_sass = sass_mix(_build.library_path("krum_scores"), "krum_gram_kernel")
+    regs = ptxas_registers(logs["ed25519_ladder"])
+    ladder = {"sass": {k: sass_mix(_build.library_path("ed25519_ladder"), fn)
+                       for k, (fn, _, _) in LADDER.items()},
+              "registers": {k: next((r for name, r in regs.items()
+                                     if fn in name), None)
+                            for k, (fn, _, _) in LADDER.items()}}
     emit("build", seconds=time.perf_counter() - t0,
          sources=[str(_build.source(k).relative_to(_build.PKG.parent))
                   for k in _build.KERNELS],
          ptxas={k: [l.strip() for l in log.splitlines()
                     if "registers" in l or "spill" in l]
                 for k, log in logs.items()},
+         ladder_sass=ladder["sass"], ladder_registers=ladder["registers"],
+         ladder_pipes={k: pipe_counts(mix)
+                       for k, mix in ladder["sass"].items()},
          oncurve_sass=oncurve_sass, krum_gram_sass=krum_sass,
          krum_gram_pipes={op: sum(c for o, c in krum_sass.items()
                                   if o.split(".")[0] == op)
@@ -2495,7 +2863,7 @@ def main() -> int:
     # crypto_kernel, crypto: the device crypto plane and kernel B2 --------
     grid, a, b = valid_grid(seed=0)
     b2 = crypto_kernel_phase(dev, grid, oncurve_sass)
-    crypto = crypto_phase(dev, grid, a, b)
+    crypto = crypto_phase(dev, grid, a, b, ladder)
     secagg = secagg_phase(dev)
 
     # models, defenses, cnn, bench, trainer: slice 3 ------------------------
@@ -2511,7 +2879,7 @@ def main() -> int:
                           first_round=7 + prof_rounds)
 
     # live: slice 6, clusters of port peers on the card --------------------
-    live = live_phase()
+    live = live_phase(secagg["b3_launches_prewarm"])
 
     # hive: slice 7, co-hosted port peers on the card -----------------------
     hive = hive_phase(dev)
@@ -2575,7 +2943,8 @@ def main() -> int:
         "max_abs_err": b2["max_abs_err"],
         "ms": b2["ms"], "plain_ms": b2["plain_ms"],
         "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}] + ladder_line(crypto, secagg, live, drivers)}),
+        flush=True)
     print(smi, flush=True)  # the card's name and power limit, verbatim
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -11,7 +11,9 @@ equal; `shamir_recover` is exact after rounding.
 
 Cost: each jitted reference entry point compiles once per bucket shape (msm
 at its 32-lane floor, fixed-base at 8 and 1 lanes, one grid shape), and the
-Pallas kernel runs once, on the edge set.
+Pallas kernel runs once, on the edge set. Kernel B3's plain versions (the
+port's `cuda_ladder.py`, what its CUDA kernels are held to on the card) are
+held to those same compiled programs, limb for limb.
 """
 
 import numpy as np
@@ -30,9 +32,12 @@ from biscotti_tpu.ops import secretshare as ss
 from biscotti_tpu_torch.crypto import commitments as cm
 from biscotti_tpu_torch.crypto import ed25519 as ed
 from biscotti_tpu_torch.crypto import kernels
+from biscotti_tpu_torch.crypto.kernels import cuda_ladder as cl
 from biscotti_tpu_torch.crypto.kernels import cuda_validate as cv
 from biscotti_tpu_torch.crypto.kernels.cells import (EDGE_FIELD, edge_cells,
-                                                     random_cells, raw_limbs)
+                                                     ladder_lanes,
+                                                     random_cells, raw_limbs,
+                                                     wire_grids)
 from biscotti_tpu_torch.crypto.kernels import field as fe
 from biscotti_tpu_torch.crypto.kernels import group as gp
 from biscotti_tpu_torch.crypto.kernels import instrument
@@ -370,6 +375,172 @@ def test_shamir_recover_matches_reference(seed):
     assert got.dtype == np.int64
     assert np.array_equal(got, rprim.shamir_recover(pinv, sh))
     assert np.array_equal(got, ss.recover_coeffs(sh, xs, 10))
+
+
+# --------------------------------------- kernel B3's plain versions, wrappers
+
+
+def _ref_program(key, builder):
+    """The reference's jitted program at `key`, compiled once per process
+    (the entry-point tests above share the same bucket shapes)."""
+    return rprim._get(key, builder)
+
+
+def _msm_case(case):
+    """(MSB-first bits [32, 256], points [32, 4, 16]) as msm hands them to
+    the ladder: normalized by `_norm_scalar_point`, padded to 32 lanes
+    with the identity and zero scalars."""
+    if case == "lanes":
+        scalars, limbs = ladder_lanes(32, seed=3)
+    elif case == "identity_padding":
+        scalars, limbs = ladder_lanes(20, seed=4)
+    else:  # zero scalars: every add skipped
+        scalars, limbs = [0] * 32, ladder_lanes(32, seed=5)[1]
+    bits, pts = prim._norm_scalar_point(scalars, limbs)
+    pad = 32 - len(bits)
+    bits = np.concatenate([bits, np.zeros((pad, 256), bits.dtype)])
+    pts = np.concatenate([pts, gp.identity((pad,))])
+    return bits, pts
+
+
+@pytest.mark.parametrize("case", ["lanes", "identity_padding", "zero_scalars"])
+def test_plain_msm_ladder_equals_reference_program(case):
+    bits, pts = _msm_case(case)
+    ref = _ref_program(("msm", 32), lambda: rprim._build_msm(32))
+    want = ref(bits.astype(np.int32), pts)
+    lanes = cl.msm_ladder(_t(cl.pack_bits(bits)), _t(pts))
+    assert _same(cl.tree_sum(lanes), want)
+    if case == "lanes":
+        # lane 0 is the identity under q − 1, so it is negated, and its
+        # fsub(Y, X) reaches the −1 limb that needs signed limbs; fmul
+        # carries such a limb on (why the wrappers take negative limbs)
+        assert np.array_equal(pts[0], prim.point_neg_limbs(gp.identity((1,)))[0])
+        s = fe.fsub(_t(pts[0, 1]), _t(pts[0, 0]))
+        assert int(s.min()) == -1 and int(fe.fmul(s, s).min()) == -1
+    if case == "zero_scalars":  # doubled identities: loose limbs, identity
+        assert all(ed.is_identity(gp.limbs_to_point(p)) for p in lanes.numpy())
+
+
+@pytest.mark.parametrize("which", ["B", "H", "BH"])
+def test_plain_fixed_walk_equals_reference_program(which):
+    rng = np.random.default_rng(len(which))
+    m = 8 if len(which) == 1 else 1
+    scalars = EDGE_SCALARS[:2] + [int.from_bytes(rng.bytes(32), "little")
+                                  for _ in range(m * len(which) - 2)]
+    bits = np.concatenate(
+        [fe.scalars_to_bits([s % ed.Q for s in scalars[i::m]], msb_first=False)
+         .reshape(1, -1) for i in range(m)])  # [m, 256 · len(which)]
+    table = np.concatenate([prim._fixed_table(w) for w in which])
+    ref = _ref_program(("fixed", m), lambda: rprim._build_fixed(m))
+    got = cl.fixed_walk(_t(cl.pack_bits(bits)), _t(table))
+    assert _same(got, ref(bits.astype(np.int32), table))
+
+
+def _grid_case(case):
+    if case == "wire_grids":
+        return wire_grids(4, 3, seed=6)
+    xy = np.stack([gp.xy_bytes_to_limbs(bytes(g), 3)
+                   for g in _wave(case)]).astype(np.int64)
+    pad = np.zeros((4 - len(xy), 3, 2, 16), np.int64)
+    pad[..., 1, 0] = 1  # the affine identity, as grid_validate_sum pads
+    return np.concatenate([xy, pad])
+
+
+@pytest.mark.parametrize("case", GRID_CASES + ["wire_grids"])
+def test_plain_grid_sum_equals_reference_program(case):
+    xy = _grid_case(case)
+    ref = _ref_program(("grid", 4, 3), lambda: rprim._build_grid(4, 3))
+    want_ok, want_sum = ref(xy)
+    grid_ok, summed = cl.grid_sum(_t(xy))
+    assert _same(grid_ok, want_ok) and _same(summed, want_sum)
+    ok, _ = cl.grid_points_plain(_t(xy))  # each cell against the oracle
+    assert np.array_equal(ok.numpy(), prim._cell_canonical_mask(xy)[1])
+
+
+def test_plain_point_add_equals_reference_program():
+    p = _point_inputs()
+    q = prim.point_neg_limbs(np.roll(p, 3, axis=0))  # limbs up to 2^18 - 4
+    ref = _ref_program(("ext_add",), rprim._build_ext_add)
+    for a, b in ((p, q), (q, p), (q, q)):
+        assert _same(cl.point_add(_t(a), _t(b)), ref(a, b))
+    assert _same(cl.tree_sum(_t(q)), rgp.tree_sum(jnp.asarray(q)))
+
+
+def test_pack_bits_round_trips():
+    rng = np.random.default_rng(8)
+    bits = rng.integers(0, 2, (5, 512)).astype(np.uint8)
+    packed = cl.pack_bits(bits)
+    assert packed.dtype == np.int32 and packed.shape == (5, 16)
+    assert np.array_equal(cl.unpack_bits(_t(packed)).numpy().T, bits > 0)
+    with pytest.raises(ValueError):
+        cl.pack_bits(bits[:, :40])
+
+
+def _wrapper_call(name, pts, bits, table, xy):
+    return {"msm_ladder": lambda: cl.msm_ladder(bits, pts),
+            "fixed_walk": lambda: cl.fixed_walk(bits[:2], table),
+            "point_add": lambda: cl.point_add(pts, pts.flip(0)),
+            "tree_sum": lambda: cl.tree_sum(pts[:4]),
+            "grid_validate_points": lambda: cl.grid_validate_points(xy)}[name]
+
+
+@pytest.mark.parametrize("name", ["msm_ladder", "fixed_walk", "point_add",
+                                  "tree_sum", "grid_validate_points"])
+def test_ladder_wrappers_refuse_limbs_outside_their_range(name):
+    """Points in (−2^19, 2^19), wire cells in [0, 2^16), on the CPU as the
+    kernel flags them; the edges just inside are computed."""
+    pts = _t(_point_inputs())
+    bits = _t(cl.pack_bits(np.ones((8, 32), np.uint8)))
+    table = _t(prim._fixed_table("B")[:32].copy())  # not the cache
+    xy = _t(wire_grids(4, 3, seed=2))
+    grid = name == "grid_validate_points"
+    inside = (0, (1 << 16) - 1) if grid else (-1, (1 << 19) - 1)
+    outside = (-1, 1 << 16) if grid else (-(1 << 19), 1 << 19)
+    target = xy if grid else (table if name == "fixed_walk" else pts)
+    at = (1, 2, 1, 3) if grid else (1, 2, 3)
+    for limb in inside:
+        target[at] = limb
+        _wrapper_call(name, pts, bits, table, xy)()
+    for limb in outside:
+        target[at] = limb
+        with pytest.raises(ValueError, match="limbs in"):
+            _wrapper_call(name, pts, bits, table, xy)()
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "not_pow2", "meta",
+                                 "bits", "table_rows", "devices"])
+def test_ladder_wrappers_refuse_what_they_do_not_take(bad):
+    pts = _t(_point_inputs())
+    bits = _t(cl.pack_bits(np.ones((8, 32), np.uint8)))
+    table = _t(prim._fixed_table("B")[:32].copy())  # not the cache
+    with pytest.raises(ValueError):
+        if bad == "dtype":
+            cl.msm_ladder(bits, pts.to(torch.int32))
+        elif bad == "shape":
+            cl.point_add(pts[:, :, :8], pts[:, :, :8])
+        elif bad == "not_pow2":
+            cl.tree_sum(pts[:3])
+        elif bad == "meta":
+            cl.grid_validate_points(torch.empty((4, 3, 2, 16),
+                                                dtype=torch.int64,
+                                                device="meta"))
+        elif bad == "bits":
+            cl.msm_ladder(bits[:5], pts)
+        elif bad == "table_rows":
+            cl.fixed_walk(bits, table[:31])
+        else:
+            cl.point_add(pts, pts.to("meta"))
+
+
+def test_ladder_library_is_named_and_import_builds_nothing():
+    from biscotti_tpu_torch import _build
+
+    assert "ed25519_ladder" in _build.KERNELS
+    assert _build.source("ed25519_ladder").is_file()
+    assert _build.load.cache_info().currsize == 0  # nothing loaded here
+    for entry in ("msm_ladder", "fixed_walk", "grid_validate_points",
+                  "point_add"):
+        assert getattr(cl, entry).launches == 0  # no CUDA tensor on the CPU
 
 
 # ------------------------------------------------- oracle modules, switch

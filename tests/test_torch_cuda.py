@@ -18,9 +18,13 @@ import pytest
 import torch
 
 from biscotti_tpu_torch.crypto import ed25519 as ed
+from biscotti_tpu_torch.crypto.kernels import cuda_ladder as cl
 from biscotti_tpu_torch.crypto.kernels import cuda_validate as cv
+from biscotti_tpu_torch.crypto.kernels import field as fe
+from biscotti_tpu_torch.crypto.kernels import group as gp
 from biscotti_tpu_torch.crypto.kernels.cells import (edge_cells, grid_bytes,
-                                                     random_cells)
+                                                     ladder_lanes,
+                                                     random_cells, wire_grids)
 from biscotti_tpu_torch.crypto.kernels import primitives as prim
 from biscotti_tpu_torch.ops import krum_cuda
 from biscotti_tpu_torch.ops.krum import (accept_mask, default_num_adversaries,
@@ -286,6 +290,119 @@ def test_plane_card_matches_cpu_bit_for_bit(dev, monkeypatch):
     coeffs = rng.integers(-1000, 1000, (785, 10))
     agg = np.vander(np.arange(15) - 10, 10, increasing=True) @ coeffs.T
     assert np.array_equal(prim.shamir_recover(pinv, agg), coeffs)
+
+
+# ------------------------------------------------ kernel B3, the ladders
+
+
+def _dev_t(a, dev):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def _msm_lanes(m, dev):
+    scalars, limbs = ladder_lanes(m, seed=m)
+    bits, pts = prim._norm_scalar_point(scalars, limbs)
+    assert (pts == prim.point_neg_limbs(gp.identity((1,)))[0]).all(
+        axis=(1, 2)).any()  # the negated identity: fsub's -1 limb
+    return _dev_t(cl.pack_bits(bits), dev), _dev_t(pts, dev)
+
+
+@pytest.mark.parametrize("m", [32, 8192])
+def test_msm_ladder_kernel_matches_plain(dev, m):
+    bits, pts = _msm_lanes(m, dev)
+    before = cl.msm_ladder.launches
+    got = cl.msm_ladder(bits, pts)
+    torch.cuda.synchronize()
+    assert cl.msm_ladder.launches == before + 1
+    assert got.dtype == torch.int64 and got.shape == (m, 4, 16)
+    assert torch.equal(got, cl.msm_ladder_plain(bits, pts))
+
+
+@pytest.mark.parametrize("m,steps", [(4, 256), (1, 512)])
+def test_fixed_walk_kernel_matches_plain(dev, m, steps):
+    rng = np.random.default_rng(steps + m)
+    scalars = [int.from_bytes(rng.bytes(32), "little") % ed.Q
+               for _ in range(m * steps // 256)]
+    bits = np.concatenate([fe.scalars_to_bits(scalars[i::m], msb_first=False)
+                           for i in range(m)]).reshape(m, steps)
+    table = np.concatenate([prim._fixed_table(w) for w in "BH"][:steps // 256])
+    b, t = _dev_t(cl.pack_bits(bits), dev), _dev_t(table, dev)
+    before = cl.fixed_walk.launches
+    got = cl.fixed_walk(b, t)
+    torch.cuda.synchronize()
+    assert cl.fixed_walk.launches == before + 1
+    assert torch.equal(got, cl.fixed_walk_plain(b, t))
+
+
+@pytest.mark.parametrize("w,n", [(4, 64), (64, 7850)])
+def test_grid_points_kernel_matches_plain(dev, w, n):
+    xy = _dev_t(wire_grids(w, n, seed=n), dev)
+    before = cl.grid_validate_points.launches
+    ok, pts = cl.grid_validate_points(xy)
+    torch.cuda.synchronize()
+    assert cl.grid_validate_points.launches == before + 1
+    want_ok, want_pts = cl.grid_points_plain(xy)
+    assert torch.equal(ok, want_ok) and torch.equal(pts, want_pts)
+    grid_ok = ok.all(dim=1).tolist()
+    assert grid_ok[:4] == [True, False, False, False]
+    grid_ok_sum, summed = cl.grid_sum(xy)
+    assert grid_ok_sum.tolist() == grid_ok
+    assert torch.equal(summed.cpu(), cl.grid_sum(xy.cpu())[1])
+
+
+def test_point_add_kernel_and_tree_sum_match_plain(dev):
+    _, pts = _msm_lanes(8192, dev)
+    before = cl.point_add.launches
+    got = cl.point_add(pts[:4096], pts[4096:])
+    assert torch.equal(got, cl.point_add_plain(pts[:4096], pts[4096:]))
+    assert cl.point_add.launches == before + 1
+    lanes = cl.msm_ladder(*_msm_lanes(8192, dev))
+    want = lanes
+    while len(want) > 1:
+        want = cl.point_add_plain(want[:len(want) // 2], want[len(want) // 2:])
+    before = cl.point_add.launches
+    total = cl.tree_sum(lanes)
+    assert cl.point_add.launches == before + 13  # log2(8192) levels
+    assert torch.equal(total, want[0])
+    assert torch.equal(total.cpu(), cl.tree_sum(lanes.cpu()))
+
+
+def test_ladder_kernels_are_deterministic_and_refuse_what_they_do_not_take(dev):
+    bits, pts = _msm_lanes(32, dev)
+    assert torch.equal(cl.msm_ladder(bits, pts), cl.msm_ladder(bits, pts))
+    xy = _dev_t(wire_grids(4, 64, seed=1), dev)
+    a, b = cl.grid_validate_points(xy), cl.grid_validate_points(xy)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    table = _dev_t(prim._fixed_table("B"), dev)
+    assert torch.equal(cl.fixed_walk(bits[:4], table),
+                       cl.fixed_walk(bits[:4], table))
+    for limb in (-(1 << 19), 1 << 19, 1 << 40):  # outside (-2^19, 2^19)
+        bad = pts.clone()
+        bad[5, 2, 7] = limb
+        with pytest.raises(ValueError, match="outside"):
+            cl.msm_ladder(bits, bad)
+        with pytest.raises(ValueError, match="outside"):
+            cl.point_add(pts, bad)
+        with pytest.raises(ValueError, match="outside"):
+            cl.tree_sum(bad)
+        bad_table = table.clone()
+        bad_table[200, 3, 0] = limb
+        with pytest.raises(ValueError, match="outside"):
+            cl.fixed_walk(bits[:4], bad_table)
+    for limb in (-1, 1 << 16):  # outside [0, 2^16)
+        bad = xy.clone()
+        bad[2, 9, 1, 4] = limb
+        with pytest.raises(ValueError, match="outside"):
+            cl.grid_validate_points(bad)
+    edge = pts.clone()
+    edge[5, 2, 7], edge[6, 0, 0] = (1 << 19) - 1, -1  # inside: computed
+    assert torch.equal(cl.point_add(edge, pts), cl.point_add_plain(edge, pts))
+    with pytest.raises(ValueError):
+        cl.msm_ladder(bits, pts.to(torch.int32))
+    with pytest.raises(ValueError):
+        cl.point_add(pts.transpose(0, 1).contiguous().transpose(0, 1), pts)
+    with pytest.raises(ValueError):
+        cl.tree_sum(pts[:3])
 
 
 # --------------------------------- slice 3: CNNs and defenses on the card
