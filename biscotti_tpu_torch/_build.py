@@ -28,6 +28,7 @@ import fcntl
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -105,19 +106,21 @@ def digest_path(stem: str, src: Path, flags, extra: bytes = b"") -> Path:
 
 def compile_once(compiler: str, flags, src: Path, out: Path) -> str:
     """Compile `src` into `out` unless it is built already. Returns the
-    compiler's report ("" if it was already built); raises with the report
-    if the compile fails. The compile runs under a file lock per library,
-    into a temporary name renamed into place, so processes that start
-    together (test workers) build it once and none loads a half-written
-    library."""
+    compiler's report, which is kept beside the library (`<out>.log`), so
+    a call that finds the library built returns the report of the build
+    that made it; raises with the report if the compile fails. The
+    compile runs under a file lock per library, into a temporary name
+    renamed into place, so processes that start together (test workers)
+    build it once and none loads a half-written library."""
+    log = out.with_name(out.name + ".log")
     if out.exists():
-        return ""
+        return log.read_text() if log.exists() else ""
     out.parent.mkdir(parents=True, exist_ok=True)
     stem = out.name.rsplit("-", 1)[0]
     with open(out.parent / f"{stem}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if out.exists():  # another process built it while this one waited
-            return ""
+            return log.read_text() if log.exists() else ""
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.run([compiler, *flags, "-o", str(tmp), str(src)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -125,7 +128,8 @@ def compile_once(compiler: str, flags, src: Path, out: Path) -> str:
         if proc.returncode != 0:
             raise RuntimeError(f"{os.path.basename(compiler)} failed on "
                                f"{src.name}:\n{proc.stdout}")
-        os.replace(tmp, out)
+        log.write_text(proc.stdout)  # before the library: a library's
+        os.replace(tmp, out)         # report is there whenever it is
     return proc.stdout
 
 
@@ -135,8 +139,29 @@ def library_path(name: str) -> Path:
 
 def build(name: str) -> str:
     """Compile the named CUDA library unless it is built already; returns
-    nvcc's report ("" if it was already built)."""
+    nvcc's report of the build that made it."""
     return compile_once(nvcc(), NVCC_FLAGS, source(name), library_path(name))
+
+
+def ptxas_report(log: str) -> dict:
+    """{entry function: {"registers", "spill_stores", "spill_loads"}} from
+    nvcc's -Xptxas=-v report (names as compiled, mangled for templates)."""
+    report: dict = {}
+    current = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            current = report.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and current is not None:
+            current["spill_stores"] = int(m.group(1))
+            current["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            current["registers"] = int(m.group(1))
+    return report
 
 
 @functools.lru_cache(maxsize=None)

@@ -13,7 +13,8 @@ printed as one JSON line:
               ptxas's register and spill report, the on-curve kernel's SASS
               instruction mix, the Krum Gram kernel's (its FFMA and HMMA
               counts) and each ladder kernel's (B3a-B3d, with their pipe
-              counts and registers);
+              counts, registers and spills, and the source's layout
+              constants); B3a and B3b must spill nothing;
   3. kernel   krum_scores kernel vs its plain PyTorch version on the card,
               random shapes up to (4096, 7850), a 30-row duplicate-tie case,
               a poison-cluster case whose accept set must be identical
@@ -72,9 +73,11 @@ printed as one JSON line:
               fixed-base walk at 4 x 256 and the Pedersen comb at 1 x 512,
               the wave's 64 x 7,850 cells, ext_add's 7,850 pairs and the
               msm's tree), bit for bit, each timed through its wrapper,
-              alone and plain (CUDA events) beside its bound and its
-              occupancy bound; one torch.profiler window over the msm
-              (its kernel count recorded, not gated);
+              alone and plain (CUDA events) beside its bound (B3a's and
+              B3b's from the work of a double and an add frozen from the
+              one-thread ladders, B3d's SASS held to that add) and its
+              layout's occupancy bound; one torch.profiler window over
+              the msm (its kernel count recorded, not gated);
   secagg      the secure-aggregation plane at the bench's mnist_100_dp_eps1
               width (d = 7,850, C = 785, k = 10, 3 miners at r = 2: 21
               shares, 7 rows a miner), the native library loaded: one
@@ -146,7 +149,11 @@ printed as one JSON line:
               fold), 3 rounds, B3a, B3c and B3d launched in the rounds
               beyond the peers' prewarms, and its witness: the same
               rounds on the native plane, whose chain (b)'s must equal
-              hash for hash; (c) 7 peers, mnist_cnn (d = 164,266) in plain mode
+              hash for hash where every round pooled the same workers
+              (a verifier pools the first 5 of 6 updates to arrive: up to
+              LIVE_PAIRS runs of the pair, each row with its pools and
+              each block's contributors); (c) 7 peers, mnist_cnn (d =
+              164,266) in plain mode
               with KRUM verification, 2 rounds. Each: chains equal,
               rounds reached, non-empty blocks, each round's wall time,
               the peers' phase totals, every peer's Trainer on the card,
@@ -258,6 +265,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from biscotti_tpu_torch.eval.eval_krum_kernel import (  # noqa: E402
     PEAK_BYTES_PER_S, PEAK_FP32_FLOPS, RTOL, accept_set, krum_times, rel_err,
     time_ms)
+# the ladder library's layout constants, read from its source
+from biscotti_tpu_torch.tools.ladder_ab import layout  # noqa: E402
 # the integer pipes of one H100 SXM: 132 SMs at 1.98 GHz, the clock behind
 # the data sheet's fp32 figure (67e12 / (132 SMs × 128 lanes × 2)); per SM
 # and clock, 64 lanes of 32-bit integer results on each of the FMA pipe
@@ -285,6 +294,15 @@ LADDER = {
             "biscotti_tpu/crypto/kernels/primitives.py:155"),
     "B3d": ("point_add_kernel", "point_add",
             "biscotti_tpu/crypto/kernels/primitives.py:176")}
+# the work of one point add and one double on the integer pipes, as the
+# one-thread-a-lane ladders compiled it (git 86a9ec2): `ladder_pipes` of
+# that tree's build line on an H100 80GB HBM3 at 700.00 W. The add is
+# B3d's listing (the kernel runs it still, and ladder_step_counts holds its
+# SASS to it every run); the double is that B3a's listing, one double and
+# one add, less B3d's. B3a's and B3b's bounds count this work.
+LADDER_ADD = {"fma": 6596, "alu": 3165, "either": 0, "issued": 7312}
+LADDER_DOUBLE = {"fma": 11192 - 6596, "alu": 4729 - 3165, "either": 0,
+                 "issued": 11774 - 7312}
 EXACT_SLACK = 1.1
 # the VSS intake at the bench's mnist secure-aggregation width
 # (bench.py:849-858: N = 100, sample_percent 0.70; config.py:170)
@@ -300,6 +318,7 @@ LEDGER_CODECS = ("raw64", "f32+zlib")
 # that scores on a neighbour (k = n - f - 2 = 1)
 LIVE_PEERS = 7
 LIVE_BASE_PORT = 17500
+LIVE_PAIRS = 3  # runs of (b) and its witness, until they pool alike
 # the hive phase: (a) the reference's density entry at N = 100 (its CLI's
 # default ports, 8000 + id), (b) 100 mnist_cnn peers, (c) N = 528, whose
 # verifier pools 526 updates, inside B1's 512..4096 window, for one round
@@ -420,19 +439,16 @@ def summed(*cs: dict) -> dict:
 
 
 def ladder_step_counts(mixes: dict) -> dict:
-    """{"add": ..., "double": ...}: the pipe counts of one point add and
-    one double, from the ladder library's SASS. B3d's listing is one add
-    (with its two point loads and store); B3a's is one double and one add
-    (its 256-step loop is not unrolled: checked), so the double is B3a's
-    counts less B3d's, pipe by pipe. What the subtraction leaves out (a
-    point's load and range check) only lowers the bound."""
+    """{"add": LADDER_ADD, "double": LADDER_DOUBLE}: the work of one point
+    add and one double, frozen from the one-thread-a-lane ladders, so that
+    B3a's and B3b's bounds count the work whatever layout computes it.
+    B3d still runs that add, one thread a pair: its SASS (`mixes["B3d"]`)
+    must still give LADDER_ADD, pipe for pipe."""
     add = pipe_counts(mixes["B3d"])
-    msm = pipe_counts(mixes["B3a"])
-    if not add["fma"] < msm["fma"] < 2 * add["fma"]:
-        raise AssertionError(f"B3a's SASS is not one double and one add: "
-                             f"{msm} against B3d's {add}")
-    return {"add": add,
-            "double": {k: max(0, msm[k] - add[k]) for k in PIPES}}
+    if any(add[k] != LADDER_ADD[k] for k in PIPES):
+        raise AssertionError(f"B3d's SASS no longer gives the frozen add: "
+                             f"{add} against {LADDER_ADD}")
+    return {"add": dict(LADDER_ADD), "double": dict(LADDER_DOUBLE)}
 
 
 def ladder_bound(work: dict, nbytes: int, warp_threads=None,
@@ -459,30 +475,50 @@ def ladder_bound(work: dict, nbytes: int, warp_threads=None,
     return out
 
 
-def warp_set_steps(bits: np.ndarray) -> np.ndarray:
-    """[m, words] packed bits (m a multiple of 32, or fewer lanes) → the
-    number of steps each warp of 32 lanes takes the add: steps where any
-    of its lanes has its bit set."""
+def warp_set_steps(bits: np.ndarray, lanes: int) -> np.ndarray:
+    """[m, words] packed bits → the number of steps each warp of `lanes`
+    lanes (the last one may be partial) takes the add: steps where any of
+    its lanes has its bit set."""
     words = bits.view(np.uint32)
-    m = len(words)
-    w = words.reshape(-1, min(m, 32), words.shape[1])
+    lanes = min(len(words), lanes)
+    pad = -len(words) % lanes
+    if pad:
+        words = np.concatenate([words, np.zeros((pad, words.shape[1]),
+                                                words.dtype)])
+    w = words.reshape(-1, lanes, words.shape[1])
     union = np.bitwise_or.reduce(w, axis=1)  # [warps, words]
     return np.unpackbits(union.view(np.uint8), axis=1).sum(axis=1)
 
 
-def ptxas_registers(log: str) -> dict:
-    """{kernel: registers} from nvcc's -Xptxas=-v report."""
-    import re
+def msm_ladder_bound(mixes: dict, bits: np.ndarray, nbytes: int,
+                     layout: dict) -> dict:
+    """B3a's bound for `bits` ([m, words] packed) and `nbytes`: 32 words
+    doubles a lane and one add a set bit (ladder_step_counts), and the
+    occupancy bound of the source's layout (`layout`: G = kMsmGroup threads
+    a lane, so ceil(m G / 32) warps of 32 / G lanes), each thread doing
+    1/G of its lane's work."""
+    step = ladder_step_counts(mixes)
+    m, steps, g = len(bits), 32 * bits.shape[1], layout["kMsmGroup"]
+    pop = int(np.unpackbits(bits.view(np.uint8)).sum())
+    busiest = int(warp_set_steps(bits, 32 // g).max())
+    lane = summed(scaled(step["double"], steps), scaled(step["add"], busiest))
+    return ladder_bound(summed(scaled(step["double"], steps * m),
+                               scaled(step["add"], pop)),
+                        nbytes, scaled(lane, 1 / g), -(-m * g // 32))
 
-    regs, current = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            current = m.group(1)
-        m = re.search(r"Used (\d+) registers", line)
-        if m and current:
-            regs[current] = int(m.group(1))
-    return regs
+
+def fixed_walk_bound(mixes: dict, bits: np.ndarray, nbytes: int,
+                     layout: dict) -> dict:
+    """B3b's bound for `bits` ([m, words] packed) and `nbytes`: one add a
+    set bit (ladder_step_counts), and the occupancy bound of the source's
+    layout (one lane a block of 4 kWalkGroup threads, ceil(4 G / 32) warps
+    a lane), each thread doing 1/(4 G) of its lane's adds."""
+    step = ladder_step_counts(mixes)
+    threads = 4 * layout["kWalkGroup"]
+    per_lane = np.unpackbits(bits.view(np.uint8), axis=1).sum(axis=1)
+    return ladder_bound(scaled(step["add"], int(per_lane.sum())), nbytes,
+                        scaled(step["add"], int(per_lane.max()) / threads),
+                        len(bits) * -(-threads // 32))
 
 
 def sass_mix(lib, kernel: str):
@@ -710,8 +746,11 @@ def ladder_rows(dev, ladder: dict, wave1, gam, acc, summed1, summed2,
     bit; each timed through its wrapper, alone (the C interface on outputs
     allocated once) and plain (CUDA events, median of 20; the plain
     ladders, ~1e5 launches a call, median of 3), beside its bound.
-    `ladder` is the build phase's SASS mixes and registers. Launches made
-    here are comparisons, not main-path launches. Returns {id: [rows]}."""
+    `ladder` is the build phase's SASS mixes, ptxas reports (registers,
+    spills) and the source's layout constants. B3a's and B3b's bounds
+    count the frozen work of a double and an add (ladder_step_counts),
+    their occupancy bounds the layout's warps. Launches made here are
+    comparisons, not main-path launches. Returns {id: [rows]}."""
     import torch
 
     from biscotti_tpu_torch import _build
@@ -721,8 +760,7 @@ def ladder_rows(dev, ladder: dict, wave1, gam, acc, summed1, summed2,
     lib = _build.load("ed25519_ladder")
     stream = torch.cuda.current_stream().cuda_stream
     flag = torch.zeros(1, dtype=torch.int32, device=dev)
-    step = ladder_step_counts(ladder["sass"])
-    add, dbl = step["add"], step["double"]
+    add = ladder_step_counts(ladder["sass"])["add"]
     rows: dict = {}
 
     def on(x):
@@ -739,7 +777,9 @@ def ladder_rows(dev, ladder: dict, wave1, gam, acc, summed1, summed2,
              "kernel_only_ms": time_ms(alone) if alone else
              "not measured: one launch a level",
              "plain_ms": time_ms(plain, reps=plain_reps),
-             "registers": ladder["registers"].get(kid), **bound}
+             "registers": ladder["ptxas"][kid].get("registers"),
+             "spill_stores": ladder["ptxas"][kid].get("spill_stores"),
+             **bound}
         if int(flag):
             raise AssertionError(f"{kid} flagged a limb of its own inputs")
         emit("crypto", **r)
@@ -754,7 +794,6 @@ def ladder_rows(dev, ladder: dict, wave1, gam, acc, summed1, summed2,
     bits, pts = on(bits_np), on(pts_np)
     out = torch.empty_like(pts)
     lanes = cl.msm_ladder(bits, pts)
-    pop = int(np.unpackbits(bits_np.view(np.uint8)).sum())
     record("B3a", [m, 4 * words * 8], (lanes,),
            (cl.msm_ladder_plain(bits, pts),),
            lambda: cl.msm_ladder(bits, pts),
@@ -762,11 +801,11 @@ def ladder_rows(dev, ladder: dict, wave1, gam, acc, summed1, summed2,
                                           pts.data_ptr(), out.data_ptr(),
                                           flag.data_ptr(), m, stream),
            lambda: cl.msm_ladder_plain(bits, pts),
-           ladder_bound(summed(scaled(dbl, 256 * m), scaled(add, pop)),
-                        bits.nbytes + 2 * pts.nbytes,
-                        summed(scaled(dbl, 256),
-                               scaled(add, int(warp_set_steps(bits_np).max()))),
-                        -(-m // 32)), plain_reps=3)
+           {**msm_ladder_bound(ladder["sass"], bits_np,
+                               bits.nbytes + 2 * pts.nbytes, ladder["layout"]),
+            "threads_a_lane": ladder["layout"]["kMsmGroup"],
+            "threads_a_block": ladder["layout"]["kMsmThreads"]},
+           plain_reps=3)
 
     # B3b: fixed_base_mult's 4 lanes and the Pedersen comb's one
     for bits_np, table_np in ((prim.fixed_lanes(fixed_scalars[:4]),
@@ -777,7 +816,6 @@ def ladder_rows(dev, ladder: dict, wave1, gam, acc, summed1, summed2,
         m, words = bits_np.shape
         bits, table = on(bits_np), on(table_np)
         out = torch.empty((m, 4, 16), dtype=torch.int64, device=dev)
-        pop = int(np.unpackbits(bits_np.view(np.uint8)).sum())
         record("B3b", [m, 32 * words], (cl.fixed_walk(bits, table),),
                (cl.fixed_walk_plain(bits, table),),
                lambda: cl.fixed_walk(bits, table),
@@ -785,10 +823,12 @@ def ladder_rows(dev, ladder: dict, wave1, gam, acc, summed1, summed2,
                                               table.data_ptr(), out.data_ptr(),
                                               flag.data_ptr(), m, stream),
                lambda: cl.fixed_walk_plain(bits, table),
-               ladder_bound(scaled(add, pop), bits.nbytes + table.nbytes
-                            + out.nbytes,
-                            scaled(add, int(warp_set_steps(bits_np).max())),
-                            -(-m // 32)), plain_reps=3)
+               {**fixed_walk_bound(ladder["sass"], bits_np,
+                                   bits.nbytes + table.nbytes + out.nbytes,
+                                   ladder["layout"]),
+                "threads_a_lane": 4 * ladder["layout"]["kWalkGroup"],
+                "threads_a_block": 4 * ladder["layout"]["kWalkGroup"]},
+               plain_reps=3)
 
     # B3c: the first wave's cells, two bad grids among them
     xy = on(prim.wave_cells(wave1)).long()
@@ -1825,9 +1865,11 @@ def live_cluster(name: str, port: int, timeouts: dict, peers: int,
     for r in results:
         for ph, v in r["phases"].items():
             phases[ph] = phases.get(ph, 0.0) + v["total_s"]
-    verdicts = sorted([v["it"], len(v["src"]), sum(v["accept"])]
-                      for r in results
-                      for v in r["telemetry"].get("trust", {}).get("stream", []))
+    stream = sorted((int(v["it"]), [int(x) for x in v["src"]],
+                     [bool(x) for x in v["accept"]])
+                    for r in results
+                    for v in r["telemetry"].get("trust", {}).get("stream", []))
+    verdicts = [[it, len(src), sum(acc)] for it, src, acc in stream]
     row = {"cluster": name, "peers": peers, "base_port": port,
            "dataset": cfgs[0].dataset,
            "model": cfgs[0].model_name or "default",
@@ -1843,7 +1885,13 @@ def live_cluster(name: str, port: int, timeouts: dict, peers: int,
            "run_s": run_s, "setup_and_run_s": time.perf_counter() - t_setup,
            "final_error": results[0]["final_error"],
            "phases_total_s": {k: round(v, 4) for k, v in sorted(phases.items())},
-           "chain": blocks}
+           "chain": blocks,
+           # what each round decided, to tell two chains' first difference
+           # apart: the verifiers' pools and accept masks, each block's
+           # contributors
+           "pools": stream,
+           "block_sources": [sorted(u.source_id for u in b.data.deltas)
+                             for b in agents[0].chain.blocks[1:]]}
     if not (row["chains_equal"] and row["rounds"] == row["rounds_wanted"]
             and row["nonempty_blocks"] >= 1
             and row["devices"] == ["cuda:0"]):
@@ -1902,6 +1950,11 @@ def live_seam() -> dict:
     return {"params": d, "masks": rows}
 
 
+def pooled(row: dict) -> list:
+    """[(round, the workers a verifier pooled)] of a live cluster's row."""
+    return [(it, src) for it, src, _ in row["pools"]]
+
+
 def live_phase(prewarm_b3: dict) -> dict:
     """The live peer on the card: clusters (a), (b) with its witness and
     (c) of the module docstring and the verifier seam; returns the phase's
@@ -1925,33 +1978,44 @@ def live_phase(prewarm_b3: dict) -> dict:
     emit("live", **a)
     # (b)'s witness: its rounds on the native host plane. Every peer of
     # both draws from seed 0, and the plane decides only which commitments
-    # and grids pass, so the chains must agree hash for hash; a plane that
-    # refused a valid grid, or passed everything, would part them
-    w = live_cluster("b_witness_native", LIVE_BASE_PORT + 30, fast,
-                     LIVE_PEERS, max_iterations=3, batch_intake=True,
-                     **secagg)
-    emit("live", **w)
+    # and grids pass, so on the same pools the chains must agree hash for
+    # hash; a plane that refused a valid grid, or passed everything, would
+    # part them. A verifier pools the first krum_update_thresh updates to
+    # arrive (5 of a round's 6 workers here, the reference's main.go:680-684),
+    # so two runs of one cluster, on either plane, can pool other workers:
+    # a pair of runs is compared where every round pooled the same workers,
+    # and a pair that did not is run again, up to LIVE_PAIRS times.
     # (b): the armed plane, whose ladders are kernel B3 since it replaced
     # the eager ones (1e5 launches an msm, a 105 s round at 4 peers). The
     # long windows stay: they cost nothing when no deadline is reached
     armed = dict(update_s=120.0, block_s=300.0, krum_s=120.0, share_s=120.0,
                  rpc_s=120.0)
-    os.environ["BISCOTTI_PALLAS_CRYPTO"] = "1"
-    kernels.reset_counters()
-    cv.oncurve_mask.launches = 0
-    cl.reset_launches()
-    try:
-        b = live_cluster("b_secagg_device_crypto", LIVE_BASE_PORT + 10, armed,
-                         LIVE_PEERS, max_iterations=3, device_crypto=True,
-                         batch_intake=True, **secagg)
-        b["b2_launches"] = cv.oncurve_mask.launches
-        b["b3_launches"] = cl.launches()
-        b["device_crypto_calls"] = kernels.device_calls()
-        b["device_crypto_seconds"] = kernels.device_seconds()
-        b["armed_device"] = kernels.armed_device().type
-    finally:
-        kernels.set_enabled(False)
-        os.environ.pop("BISCOTTI_PALLAS_CRYPTO")
+    for pair in range(LIVE_PAIRS):
+        w = live_cluster("b_witness_native", LIVE_BASE_PORT + 30, fast,
+                         LIVE_PEERS, max_iterations=3, batch_intake=True,
+                         **secagg)
+        emit("live", pair=pair, **w)
+        os.environ["BISCOTTI_PALLAS_CRYPTO"] = "1"
+        kernels.reset_counters()
+        cv.oncurve_mask.launches = 0
+        cl.reset_launches()
+        try:
+            b = live_cluster("b_secagg_device_crypto", LIVE_BASE_PORT + 10,
+                             armed, LIVE_PEERS, max_iterations=3,
+                             device_crypto=True, batch_intake=True, **secagg)
+            b["b2_launches"] = cv.oncurve_mask.launches
+            b["b3_launches"] = cl.launches()
+            b["device_crypto_calls"] = kernels.device_calls()
+            b["device_crypto_seconds"] = kernels.device_seconds()
+            b["armed_device"] = kernels.armed_device().type
+        finally:
+            kernels.set_enabled(False)
+            os.environ.pop("BISCOTTI_PALLAS_CRYPTO")
+        b["pair"] = pair
+        b["pools_equal_witness"] = pooled(b) == pooled(w)
+        if b["pools_equal_witness"]:
+            break
+        emit("live", **b)
     # every grid_validate_sum call of a miner's fold launches B2 once
     # (prewarm's launches are on top: it runs under the same switch)
     b["b2_fold_launches"] = b["device_crypto_calls"].get("grid_validate", 0)
@@ -1968,9 +2032,16 @@ def live_phase(prewarm_b3: dict) -> dict:
            ("msm_ladder", "grid_validate_points", "point_add")) < 1:
         raise AssertionError(f"live cluster (b)'s rounds did not launch B3a, "
                              f"B3c and B3d: {b['b3_round_launches']}")
+    if not b["pools_equal_witness"]:
+        raise AssertionError(f"live cluster (b) and its witness pooled other "
+                             f"workers in each of {LIVE_PAIRS} pairs: "
+                             f"{b['pools']} vs {w['pools']}")
     if not b["chain_equals_witness"]:
-        raise AssertionError(f"live cluster (b)'s chain is not its native "
-                             f"witness's: {b['chain']} vs {w['chain']}")
+        raise AssertionError(
+            f"live cluster (b)'s chain is not its native witness's: "
+            f"{b['chain']} vs {w['chain']}; pools {b['pools']} vs "
+            f"{w['pools']}; contributors {b['block_sources']} vs "
+            f"{w['block_sources']}")
     c = live_cluster("c_cnn_plain", LIVE_BASE_PORT + 20, fast, LIVE_PEERS,
                      max_iterations=2, dataset="mnist", model_name="mnist_cnn",
                      secure_agg=False, noising=False, verification=True)
@@ -2013,9 +2084,11 @@ def hive_cell(name: str, cfg, pool_hook: bool = False):
     summary = phive.summarize(hive, results, run_s, cfg.max_iterations)
     blocks = results[0]["chain_dump"].splitlines()[1:]
     stamps = [float(line.split(",")[2]) for line in results[0]["logs"]]
-    verdicts = sorted([v["it"], len(v["src"]), sum(v["accept"])]
-                      for r in results
-                      for v in r["telemetry"].get("trust", {}).get("stream", []))
+    stream = sorted((int(v["it"]), [int(x) for x in v["src"]],
+                     [bool(x) for x in v["accept"]])
+                    for r in results
+                    for v in r["telemetry"].get("trust", {}).get("stream", []))
+    verdicts = [[it, len(src), sum(acc)] for it, src, acc in stream]
     phases: dict = {}
     for r in results:
         for ph, v in r["phases"].items():
@@ -2605,7 +2678,9 @@ def ladder_line(crypto: dict, secagg: dict, live: dict, drivers: dict):
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "kernel_only_ms": main["kernel_only_ms"],
             "occupancy_bound_ms": main.get("occupancy_bound_ms"),
+            "threads_a_lane": main.get("threads_a_lane"),
             "registers": main["registers"],
+            "spill_stores": main["spill_stores"],
             "at": [{k: r.get(k) for k in ("shape", "ms", "kernel_only_ms",
                                            "plain_ms", "bound_ms", "bound_by",
                                            "occupancy_bound_ms")}
@@ -2647,19 +2722,21 @@ def main() -> int:
         logs = dict(zip(_build.KERNELS, pool.map(_build.build, _build.KERNELS)))
     oncurve_sass = sass_mix(_build.library_path("oncurve"), "oncurve_kernel")
     krum_sass = sass_mix(_build.library_path("krum_scores"), "krum_gram_kernel")
-    regs = ptxas_registers(logs["ed25519_ladder"])
+    report = _build.ptxas_report(logs["ed25519_ladder"])
     ladder = {"sass": {k: sass_mix(_build.library_path("ed25519_ladder"), fn)
                        for k, (fn, _, _) in LADDER.items()},
-              "registers": {k: next((r for name, r in regs.items()
-                                     if fn in name), None)
-                            for k, (fn, _, _) in LADDER.items()}}
+              "ptxas": {k: next((r for name, r in report.items()
+                                 if fn in name), {})
+                        for k, (fn, _, _) in LADDER.items()},
+              "layout": layout(_build.source("ed25519_ladder").read_text())}
     emit("build", seconds=time.perf_counter() - t0,
          sources=[str(_build.source(k).relative_to(_build.PKG.parent))
                   for k in _build.KERNELS],
          ptxas={k: [l.strip() for l in log.splitlines()
                     if "registers" in l or "spill" in l]
                 for k, log in logs.items()},
-         ladder_sass=ladder["sass"], ladder_registers=ladder["registers"],
+         ladder_sass=ladder["sass"], ladder_ptxas=ladder["ptxas"],
+         ladder_layout=ladder["layout"],
          ladder_pipes={k: pipe_counts(mix)
                        for k, mix in ladder["sass"].items()},
          oncurve_sass=oncurve_sass, krum_gram_sass=krum_sass,
@@ -2667,6 +2744,9 @@ def main() -> int:
                                   if o.split(".")[0] == op)
                           for op in ("FFMA", "HMMA")}
          if isinstance(krum_sass, dict) else krum_sass)
+    for kid in ("B3a", "B3b"):  # the grouped ladders keep every value in
+        if ladder["ptxas"][kid].get("spill_stores") != 0:  # registers
+            raise AssertionError(f"{kid} spills: {ladder['ptxas'][kid]}")
 
     # 3. kernel vs plain --------------------------------------------------
     kern, plain = krum_cuda.krum_scores_kernel, krum_cuda.krum_scores_plain

@@ -307,7 +307,8 @@ def _msm_lanes(m, dev):
     return _dev_t(cl.pack_bits(bits), dev), _dev_t(pts, dev)
 
 
-@pytest.mark.parametrize("m", [32, 8192])
+# lane counts that leave partial groups, warps and blocks of B3a's layout
+@pytest.mark.parametrize("m", [1, 3, 32, 100, 8192])
 def test_msm_ladder_kernel_matches_plain(dev, m):
     bits, pts = _msm_lanes(m, dev)
     before = cl.msm_ladder.launches
@@ -316,22 +317,60 @@ def test_msm_ladder_kernel_matches_plain(dev, m):
     assert cl.msm_ladder.launches == before + 1
     assert got.dtype == torch.int64 and got.shape == (m, 4, 16)
     assert torch.equal(got, cl.msm_ladder_plain(bits, pts))
+    assert torch.equal(cl.msm_ladder(bits, pts), got)  # two calls, same bits
 
 
-@pytest.mark.parametrize("m,steps", [(4, 256), (1, 512)])
-def test_fixed_walk_kernel_matches_plain(dev, m, steps):
+@pytest.mark.parametrize("pattern", ["clear", "set"])
+def test_msm_ladder_kernel_every_bit_clear_or_set(dev, pattern):
+    bits, pts = _msm_lanes(100, dev)  # lane 0: the negated identity
+    bits = torch.full_like(bits, 0 if pattern == "clear" else -1)
+    got = cl.msm_ladder(bits, pts)
+    assert torch.equal(got, cl.msm_ladder_plain(bits, pts))
+    assert torch.equal(cl.msm_ladder(bits, pts), got)
+
+
+def _walk_lanes(m, steps):
+    """(bits [m, steps] 0/1, table [steps, 4, 16]) of seeded scalars."""
     rng = np.random.default_rng(steps + m)
     scalars = [int.from_bytes(rng.bytes(32), "little") % ed.Q
                for _ in range(m * steps // 256)]
     bits = np.concatenate([fe.scalars_to_bits(scalars[i::m], msb_first=False)
                            for i in range(m)]).reshape(m, steps)
     table = np.concatenate([prim._fixed_table(w) for w in "BH"][:steps // 256])
+    return bits, table
+
+
+@pytest.mark.parametrize("m,steps", [(4, 256), (1, 512), (3, 256), (32, 256)])
+def test_fixed_walk_kernel_matches_plain(dev, m, steps):
+    bits, table = _walk_lanes(m, steps)
     b, t = _dev_t(cl.pack_bits(bits), dev), _dev_t(table, dev)
     before = cl.fixed_walk.launches
     got = cl.fixed_walk(b, t)
     torch.cuda.synchronize()
     assert cl.fixed_walk.launches == before + 1
     assert torch.equal(got, cl.fixed_walk_plain(b, t))
+    assert torch.equal(cl.fixed_walk(b, t), got)  # two calls, same bits
+
+
+def test_ladders_at_the_loose_limb_edges(dev):
+    edge = (1 << 19) - 1  # the largest magnitude inside (-2^19, 2^19)
+    bits, pts = _msm_lanes(37, dev)
+    pts = pts.clone()
+    for lane, row, limb, sign in ((2, 0, 0, 1), (2, 1, 15, -1), (9, 2, 7, 1),
+                                  (9, 3, 0, -1), (36, 3, 15, 1)):
+        pts[lane, row, limb] = sign * edge
+    got = cl.msm_ladder(bits, pts)
+    assert torch.equal(got, cl.msm_ladder_plain(bits, pts))
+    bits, table = _walk_lanes(3, 256)
+    for s, (row, limb) in zip((0, 5, 31, 32, 200, 255),
+                              ((0, 0), (1, 15), (2, 3), (3, 15), (0, 9),
+                               (2, 0))):
+        table[s, row, limb] = edge if s % 2 else -edge
+        bits[:, s] = 1  # each such row added on every lane
+    b, t = _dev_t(cl.pack_bits(bits), dev), _dev_t(table, dev)
+    got = cl.fixed_walk(b, t)
+    assert torch.equal(got, cl.fixed_walk_plain(b, t))
+    assert torch.equal(cl.fixed_walk(b, t), got)
 
 
 @pytest.mark.parametrize("w,n", [(4, 64), (64, 7850)])

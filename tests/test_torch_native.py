@@ -148,8 +148,9 @@ def test_grid_loaders_match_the_python_loader():
 
 def test_build_writes_only_its_own_library(tmp_path, monkeypatch):
     """The port compiles native/ed25519_msm.cpp into its own build
-    directory, under a digest of source, compiler and flags; it writes
-    nothing under native/ and never loads the reference's library."""
+    directory, under a digest of source, compiler and flags (the
+    compiler's report kept beside the library); it writes nothing under
+    native/ and never loads the reference's library."""
     import shutil
 
     native_dir = os.path.join(REPO, "native")
@@ -164,7 +165,7 @@ def test_build_writes_only_its_own_library(tmp_path, monkeypatch):
     assert out.name.startswith("libbiscotti_native-") and out.suffix == ".so"
     assert _native.build() == out  # built once
     assert sorted(p.name for p in (tmp_path / "build").iterdir()) == sorted(
-        [out.name, "libbiscotti_native.lock"])
+        [out.name, out.name + ".log", "libbiscotti_native.lock"])
     assert sorted(os.listdir(native_dir)) == before
     assert not any(f.startswith("libbiscotti_native-") or "lock" in f
                    for f in before)
@@ -172,21 +173,23 @@ def test_build_writes_only_its_own_library(tmp_path, monkeypatch):
 
 def test_compile_once_digests_and_reports_failure(tmp_path, monkeypatch):
     """The one build procedure the CUDA kernels and the native library
-    share: the digest moves with the source and the extra bytes, and a
-    failed compile raises with the compiler's report and leaves no
-    library behind."""
+    share: the digest moves with the source and the extra bytes, the
+    compiler's report is kept beside the library and returned again when
+    the library is found built, and a failed compile raises with the
+    compiler's report and leaves no library behind."""
     import ctypes
     import shutil
 
     monkeypatch.setattr(_build, "BUILD", tmp_path / "build")
     src = tmp_path / "probe.cpp"
-    src.write_text('extern "C" int probe() { return 7; }\n')
-    flags = ("-O1", "-fPIC", "-shared")
+    src.write_text('extern "C" int probe() { int unused; return 7; }\n')
+    flags = ("-O1", "-fPIC", "-shared", "-Wall")
     out = _build.digest_path("probe", src, flags)
     assert out != _build.digest_path("probe", src, flags, b"host")
-    _build.compile_once(shutil.which("g++"), flags, src, out)
+    report = _build.compile_once(shutil.which("g++"), flags, src, out)
+    assert "unused" in report
     assert ctypes.CDLL(str(out)).probe() == 7
-    assert _build.compile_once(shutil.which("g++"), flags, src, out) == ""
+    assert _build.compile_once(shutil.which("g++"), flags, src, out) == report
     src.write_text("this is not C++\n")
     bad = _build.digest_path("probe", src, flags)
     assert bad != out
@@ -194,7 +197,7 @@ def test_compile_once_digests_and_reports_failure(tmp_path, monkeypatch):
         _build.compile_once(shutil.which("g++"), flags, src, bad)
     assert not bad.exists()
     assert sorted(p.name for p in (tmp_path / "build").iterdir()) == sorted(
-        [out.name, "libprobe.lock"])
+        [out.name, out.name + ".log", "libprobe.lock"])
 
 
 def test_without_gpp_the_plane_is_unavailable_and_says_why(monkeypatch,
