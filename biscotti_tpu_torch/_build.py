@@ -11,8 +11,8 @@ as `c_void_p`.
                  kernels a call: pad, fp32 Gram, row select)
     oncurve      kernel B2, on-curve validator (crypto/kernels/cuda_validate.py)
     ed25519_ladder  kernels B3a-B3d, the crypto ladders: msm double-and-add,
-                 fixed-base walk, grid validate-and-points, point add
-                 (crypto/kernels/cuda_ladder.py)
+                 fixed-base walk, grid validate-and-points, point add and
+                 the tree sums (crypto/kernels/cuda_ladder.py)
 
 `crypto/_native.py` builds the host EC library with `g++` through the same
 `digest_path` and `compile_once`.
@@ -65,12 +65,21 @@ def _ladder_signatures(lib: ctypes.CDLL) -> None:
     for fn in (lib.ed25519_msm_ladder, lib.ed25519_fixed_walk):
         fn.argtypes = [p, i, p, p, p, n, p]
         fn.restype = ctypes.c_int
-    # (xy, ok, pts, bad, cells, stream) and (a, b, out, bad, n, stream)
+    # (xy, ok, pts or null, bad, cells, stream) and (a, b, out, bad, n,
+    # stream)
     for fn in (lib.ed25519_grid_points, lib.ed25519_point_add):
         fn.argtypes = [p, p, p, p, n, p]
         fn.restype = ctypes.c_int
     lib.ed25519_error_string.argtypes = [ctypes.c_int]
     lib.ed25519_error_string.restype = ctypes.c_char_p
+    # (pts, out, bad, rows, cols, stream)
+    lib.ed25519_point_tree.argtypes = [p, p, p, n, n, p]
+    lib.ed25519_point_tree.restype = ctypes.c_int
+    # (xy, grid_ok, out, bad, rows, cols, row_cells, stream)
+    lib.ed25519_grid_tree.argtypes = [p, p, p, p, n, n, n, p]
+    lib.ed25519_grid_tree.restype = ctypes.c_int
+    lib.ed25519_tree_groups.argtypes = []
+    lib.ed25519_tree_groups.restype = ctypes.c_int
 
 
 SIGNATURES = {"krum_scores": _krum_signatures,
@@ -162,6 +171,27 @@ def ptxas_report(log: str) -> dict:
         if m and current is not None:
             current["registers"] = int(m.group(1))
     return report
+
+
+def sass_mix(lib: Path, kernel: str):
+    """{opcode: count} of the SASS of every entry function of the built
+    library `lib` whose name holds `kernel` (each template instance), read
+    with the toolkit's cuobjdump, or why it could not be read."""
+    tool = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return "not measured: no cuobjdump beside nvcc"
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120).stdout
+    mix, inside = {}, False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)", line)
+        if inside and m:
+            mix[m.group(1)] = mix.get(m.group(1), 0) + 1
+    return dict(sorted(mix.items(), key=lambda kv: -kv[1]))
 
 
 @functools.lru_cache(maxsize=None)

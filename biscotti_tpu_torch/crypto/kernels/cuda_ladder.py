@@ -12,12 +12,16 @@ port's `field.py` and `group.py`:
                                    walk over table[i] = 2^i base
   B3c  grid_validate_points(xy)    `_build_grid`'s cells: (x < p, y < p and
                                    on the curve, the point (x, y, 1, xy))
-  B3d  point_add(a, b)             `_build_ext_add`: a[i] + b[i]
+       grid_verdicts(xy)           the verdicts alone (`grid_sum`'s B3c)
+  B3d  point_add(a, b)             `_build_ext_add`: a[i] + b[i]; and
+       column_sum(pts)             the tree sums: gp.tree_sum over axis 0
 
 and the glue of the reference's programs, which runs through them:
-`tree_sum` (gp.tree_sum: one `point_add` a level, the first half the left
-operand) and `grid_sum` (`_build_grid` whole: B3c, the grid mask as torch
-ops, the tree sum over the waves).
+`tree_sum` (gp.tree_sum: `column_sum` of one column) and `grid_sum`
+(`_build_grid` whole: B3c's verdicts, the grid mask as a torch reduction,
+then B3d's tree over the waves, which forms each cell's point as it loads
+it). A tree takes at most two B3d launches (`tree_plan`), one when a
+block reaches a whole column, as the wave's 64 grids.
 
 A wrapper given a CPU tensor computes the plain version; given a CUDA
 tensor it launches its kernel on the current stream, counts the launch
@@ -31,13 +35,14 @@ limbs in [0, 2^16) for B3c; the kernel flags a limb outside its range as it
 loads it. Bits are packed (`pack_bits`): [m, steps / 32] int32, bit b of
 word w being step 32 w + b, for the plain version and the kernel alike.
 The contract is bit equality: the kernel's int64 limbs equal the plain
-version's, and so the reference's.
+version's, and so the reference's. On the CPU a tree is the plain column
+tree, which gives the card's bits whatever its plan.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -105,14 +110,22 @@ def fixed_walk_plain(bits: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def grid_points_plain(xy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[..., 2, 16] wire cells → (ok [...] bool: x < p, y < p and on the
-    curve; the extended points (x, y, 1, xy) [..., 4, 16])."""
+def grid_verdicts_plain(xy: torch.Tensor) -> torch.Tensor:
+    """[..., 2, 16] wire cells → ok [...] bool: x < p, y < p and on the
+    curve."""
     x = xy[..., 0, :]
     y = xy[..., 1, :]
-    ok = fe.lt_p(x) & fe.lt_p(y) & gp.on_curve(x, y)
+    return fe.lt_p(x) & fe.lt_p(y) & gp.on_curve(x, y)
+
+
+def grid_points_plain(xy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., 2, 16] wire cells → (ok [...] bool, grid_verdicts_plain's; the
+    extended points (x, y, 1, xy) [..., 4, 16])."""
+    x = xy[..., 0, :]
+    y = xy[..., 1, :]
     one = fe.const("ONE_LIMBS", xy.device).expand(*x.shape)
-    return ok, torch.stack([x, y, one, fe.fmul(x, y)], dim=-2)
+    return grid_verdicts_plain(xy), torch.stack([x, y, one, fe.fmul(x, y)],
+                                                dim=-2)
 
 
 point_add_plain = gp.point_add
@@ -152,28 +165,38 @@ def _same_device(name: str, *ts: torch.Tensor) -> torch.device:
     return ts[0].device
 
 
-def _launch(wrapper, entry: str, args: Sequence, count: int,
-            device: torch.device, flag: Optional[torch.Tensor] = None) -> None:
-    """Launch `entry` of the library on `device`'s current stream with
-    `args`, the out-of-range flag and `count`; raise on a launch error and
-    count the launch on `wrapper`. The flag is checked here unless the
-    caller passes its own (`tree_sum` reads one flag after its last level)."""
+def _call(lib, entry: str, args: Sequence, tail: Tuple[int, ...],
+          flag: torch.Tensor, stream) -> None:
+    """Call `entry` of the ladder library `lib` with `args` (tensors as
+    their pointers, None as a null one), the out-of-range flag, the ints
+    `tail` and `stream`; raise on a launch error."""
+    ptrs = [t.data_ptr() if isinstance(t, torch.Tensor) else t for t in args]
+    rc = getattr(lib, entry)(*ptrs, flag.data_ptr(), *tail, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed at {tail}: "
+                           f"{lib.ed25519_error_string(rc).decode()} ({rc})")
+
+
+def _check_aligned(name: str, args: Sequence) -> None:
     for t in args:
         if isinstance(t, torch.Tensor) and (not t.is_contiguous()
                                             or t.data_ptr() % 16):
-            raise ValueError(f"{wrapper.__name__} takes contiguous, 16-byte "
-                             "aligned tensors")
-    lib = _build.load("ed25519_ladder")
+            raise ValueError(f"{name} takes contiguous, 16-byte aligned "
+                             "tensors")
+
+
+def _launch(wrapper, entry: str, args: Sequence, tail: Tuple[int, ...],
+            device: torch.device, flag: Optional[torch.Tensor] = None) -> None:
+    """Launch `entry` of the library on `device`'s current stream (`_call`)
+    and count the launch on `wrapper`. The flag is checked here unless the
+    caller passes its own (a tree reads one flag after its last launch)."""
+    _check_aligned(wrapper.__name__, args)
     own = flag is None
     if own:
         flag = torch.zeros(1, dtype=torch.int32, device=device)
-    ptrs = [t.data_ptr() if isinstance(t, torch.Tensor) else t for t in args]
     with torch.cuda.device(device):
-        rc = getattr(lib, entry)(*ptrs, flag.data_ptr(), count,
-                                 torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry} launch failed at {count}: "
-                           f"{lib.ed25519_error_string(rc).decode()} ({rc})")
+        _call(_build.load("ed25519_ladder"), entry, args, tail, flag,
+              torch.cuda.current_stream().cuda_stream)
     with _count_lock:
         wrapper.launches += 1
     if own and flag.item():
@@ -204,7 +227,7 @@ def msm_ladder(bits: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(pts)
     if len(pts):
         _launch(msm_ladder, "ed25519_msm_ladder",
-                (bits, bits.shape[1], pts, out), len(pts), dev)
+                (bits, bits.shape[1], pts, out), (len(pts),), dev)
     return out
 
 
@@ -224,7 +247,7 @@ def fixed_walk(bits: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     out = torch.empty((bits.shape[0],) + POINT, dtype=torch.int64, device=dev)
     if len(out):
         _launch(fixed_walk, "ed25519_fixed_walk",
-                (bits, bits.shape[1], table, out), len(out), dev)
+                (bits, bits.shape[1], table, out), (len(out),), dev)
     return out
 
 
@@ -242,12 +265,30 @@ def grid_validate_points(xy: torch.Tensor
                       device=xy.device)
     if ok.numel():
         _launch(grid_validate_points, "ed25519_grid_points", (xy, ok, pts),
-                ok.numel(), xy.device)
+                (ok.numel(),), xy.device)
     return ok, pts
 
 
-def _point_add(a: torch.Tensor, b: torch.Tensor,
-               flag: Optional[torch.Tensor]) -> torch.Tensor:
+def grid_verdicts(xy: torch.Tensor,
+                  flag: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """B3c's verdicts alone (`grid_sum`'s instance, which writes no
+    points): [w, n, 2, 16] int64 wire cells → ok [w, n] bool; on a CUDA
+    tensor the kernel (counted in `grid_validate_points.launches`; a
+    caller's `flag` is left for it to read)."""
+    _check("grid_verdicts", xy, torch.int64, CELL, 2)
+    if xy.device.type == "cpu":
+        _in_range("grid_verdicts", xy, 0, WIRE_BOUND)
+        return grid_verdicts_plain(xy)
+    ok = torch.empty(xy.shape[:2], dtype=torch.bool, device=xy.device)
+    if ok.numel():
+        _launch(grid_validate_points, "ed25519_grid_points", (xy, ok, None),
+                (ok.numel(),), xy.device, flag)
+    return ok
+
+
+def point_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """B3d: pointwise a[i] + b[i] of two int64 [..., 4, 16] batches; on a
+    CUDA tensor the kernel (counted in `point_add.launches`)."""
     _check("point_add", a, torch.int64, POINT, None)
     if b.shape != a.shape or b.dtype != a.dtype:
         raise ValueError(f"point_add: {b.dtype} {tuple(b.shape)} against "
@@ -260,46 +301,136 @@ def _point_add(a: torch.Tensor, b: torch.Tensor,
     out = torch.empty_like(a)
     count = a.numel() // (4 * fe.LIMBS)
     if count:
-        _launch(point_add, "ed25519_point_add", (a, b, out), count, dev, flag)
+        _launch(point_add, "ed25519_point_add", (a, b, out), (count,), dev)
     return out
 
 
-def point_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """B3d: pointwise a[i] + b[i] of two int64 [..., 4, 16] batches; on a
-    CUDA tensor the kernel (counted in `point_add.launches`)."""
-    return _point_add(a, b, None)
+def tree_plan(rows: int, cols: int, groups: int) -> List[Tuple[int, int]]:
+    """The launches of a tree over the columns of a [rows, cols] batch
+    (rows a power of two) by a library of `groups` groups a tree block
+    (`ed25519_tree_groups`), each (rows, cols) of the batch as that launch
+    views it. Output j of level k of a tree of n members is the sum, in the
+    tree's order, of the 2^k members congruent to j mod n / 2^k; so where
+    one block does not reach a column (rows > 2 groups), launch 1 sums each
+    class of rows / r members, r = 2 groups (the batch viewed as [rows / r,
+    r cols]: member j + i r of a column is row i of column j cols + c), and
+    launch 2 the r partials of each column ([r, cols])."""
+    reach = 2 * groups
+    if rows <= reach:
+        return [(rows, cols)]
+    return [(rows // reach, reach * cols), (reach, cols)]
+
+
+def column_tree_plain(pts: torch.Tensor) -> torch.Tensor:
+    """[rows, cols, 4, 16] → [cols, 4, 16]: each column's sum in
+    gp.tree_sum's halving levels, the first half the left operand."""
+    n = pts.shape[0]
+    while n > 1:
+        half = n // 2
+        pts = point_add_plain(pts[:half], pts[half:n])
+        n = half
+    return pts[0]
+
+
+def _check_rows(name: str, rows: int) -> None:
+    if not rows or rows & (rows - 1):
+        raise ValueError(f"{name} wants a power-of-two batch, got {rows}")
+
+
+def column_sum(pts: torch.Tensor) -> torch.Tensor:
+    """B3d's tree: [rows, cols, 4, 16] int64 (rows a power of two) →
+    [cols, 4, 16], column c the sum of pts[:, c] as gp.tree_sum pairs it.
+    On a CUDA tensor at most two B3d launches (`tree_plan`; counted in
+    `point_add.launches`), the range flag read once, after the last."""
+    _check("column_sum", pts, torch.int64, POINT, 2)
+    rows, cols = pts.shape[:2]
+    _check_rows("column_sum", rows)
+    if pts.device.type == "cpu":
+        _in_range("column_sum", pts, 1 - LOOSE_BOUND, LOOSE_BOUND)
+        return column_tree_plain(pts)
+    if rows == 1 or not cols:
+        return pts[0]
+    flag = torch.zeros(1, dtype=torch.int32, device=pts.device)
+    out = _counted_tree("column_sum", pts, rows, cols, flag)
+    if flag.item():
+        raise ValueError("column_sum: a limb outside the kernel's range")
+    return out
+
+
+def tree_launches(lib, src: torch.Tensor, rows: int, cols: int,
+                  flag: torch.Tensor, stream,
+                  grid_ok: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, int]:
+    """`tree_plan`'s launches of the ladder library `lib` on `stream` over
+    `src` viewed as [rows, cols]: point trees, the first a grid tree from
+    the cells where `grid_ok` is given; each writes a fresh tensor (the
+    partials, then the [cols, 4, 16] sums). Returns (the sums, the
+    launches); counts nothing and leaves `flag` to the caller."""
+    plan = tree_plan(rows, cols, lib.ed25519_tree_groups())
+    for k, (r, c) in enumerate(plan):
+        out = torch.empty((c,) + POINT, dtype=torch.int64, device=src.device)
+        if k == 0 and grid_ok is not None:
+            _call(lib, "ed25519_grid_tree", (src, grid_ok, out), (r, c, cols),
+                  flag, stream)
+        else:
+            _call(lib, "ed25519_point_tree", (src, out), (r, c), flag,
+                  stream)
+        src = out
+    return src, len(plan)
+
+
+def _counted_tree(name: str, src: torch.Tensor, rows: int, cols: int,
+                  flag: torch.Tensor,
+                  grid_ok: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`tree_launches` on the card's library and current stream, counted
+    in `point_add.launches`."""
+    _check_aligned(name, (src, grid_ok))
+    with torch.cuda.device(src.device):
+        out, n = tree_launches(_build.load("ed25519_ladder"), src, rows, cols,
+                               flag, torch.cuda.current_stream().cuda_stream,
+                               grid_ok)
+    with _count_lock:
+        point_add.launches += n
+    return out
 
 
 def tree_sum(pts: torch.Tensor) -> torch.Tensor:
-    """Σᵢ pts[i] along axis 0 (a power of two) in log₂ halving levels, each
-    one `point_add(pts[:half], pts[half:])`, as gp.tree_sum pairs them. On
-    a CUDA tensor each level is one B3d launch, and the range flag is read
-    once, after the last."""
-    _check("tree_sum", pts, torch.int64, POINT, None)
-    n = pts.shape[0]
-    if not n or n & (n - 1):
-        raise ValueError(f"tree_sum wants a power-of-two batch, got {n}")
-    flag = None if pts.device.type == "cpu" else torch.zeros(
-        1, dtype=torch.int32, device=pts.device)
-    while n > 1:
-        half = n // 2
-        pts = _point_add(pts[:half], pts[half:n], flag)
-        n = half
-    if flag is not None and flag.item():
-        raise ValueError("tree_sum: a limb outside the kernel's range")
-    return pts[0]
+    """Σᵢ pts[i] along axis 0 (a power of two) as gp.tree_sum pairs them:
+    `column_sum` of one column (on a CUDA tensor at most two B3d
+    launches)."""
+    _check("tree_sum", pts, torch.int64, POINT, 1)
+    _check_rows("tree_sum", pts.shape[0])
+    return column_sum(pts[:, None])[0]
 
 
 def grid_sum(xy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """`_build_grid` whole: [w, n, 2, 16] int64 wire cells (w a power of
     two) → (grid_ok [w] bool, the [n, 4, 16] sum of the valid grids'
-    points). B3c, then the grid mask (torch: a grid is valid iff all its
-    cells are; an invalid grid's points become the identity), then
-    `tree_sum` over the waves."""
-    ok, pts = grid_validate_points(xy)
-    grid_ok = ok.all(dim=1)
-    pts[~grid_ok] = gp.identity_on((), pts.device)
-    return grid_ok, tree_sum(pts)
+    points). A grid is valid iff all its cells are (x < p, y < p, on the
+    curve); an invalid grid's points count as the identity. On a CUDA
+    tensor: B3c's verdicts alone (`grid_verdicts`), `ok.all(dim=1)`, then
+    B3d's tree over the waves (`tree_plan`: one launch up to 2 groups a
+    tree block of waves), whose first launch forms each cell's point (x,
+    y, 1, x y) as it loads it; one range flag for all, read once. On the
+    CPU: the plain points, masked, in the plain column tree."""
+    _check("grid_sum", xy, torch.int64, CELL, 2)
+    w, n = xy.shape[:2]
+    _check_rows("grid_sum", w)
+    if xy.device.type == "cpu":
+        ok, pts = grid_validate_points(xy)
+        grid_ok = ok.all(dim=1)
+        pts[~grid_ok] = gp.identity_on((), pts.device)
+        return grid_ok, column_tree_plain(pts)
+    dev = xy.device
+    if not n:
+        return torch.ones(w, dtype=torch.bool, device=dev), \
+            torch.empty((0,) + POINT, dtype=torch.int64, device=dev)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    grid_ok = grid_verdicts(xy, flag).all(dim=1)
+    out = _counted_tree("grid_sum", xy, w, n, flag, grid_ok)
+    if flag.item():
+        raise ValueError("grid_sum: a limb outside the kernel's range")
+    return grid_ok, out
 
 
 msm_ladder.launches = 0

@@ -27,9 +27,10 @@ identity point / zero scalar, which the complete addition absorbs, because
 `tree_sum` halves a power of two. Each of the reference's jitted programs
 is a hand-written CUDA kernel here, kernel B3 (`cuda_ladder.py`: the msm
 ladder, the fixed-base walk, the grid's validate-and-points and the point
-add, with the tree sums as one point-add launch a level); on the CPU the
-wrappers compute their plain versions, the reference's own formulas as
-torch ops. Either way the port's limbs equal the reference's bit for bit.
+add, whose tree sums take at most two launches whatever the width); on the
+CPU the wrappers compute their plain versions, the reference's own
+formulas as torch ops. Either way the port's limbs equal the reference's
+bit for bit.
 
 Every entry point takes `device=None`: the GPU unless the caller asks for
 the CPU (`device.resolve_device`). Inputs and results are numpy arrays or
@@ -172,7 +173,7 @@ def msm(scalars: Sequence[int], points, device: Device = None) -> ed.Point:
     points or an [n, 4, 16] limb array (e.g. a wave-folded accumulator).
     Returns an extended python-int point — projectively equal (identical
     group element) to the CPU oracle's result on every input. One ladder
-    launch (B3a) and one point-add launch (B3d) per tree level."""
+    launch (B3a) and at most two tree launches (B3d)."""
     dev = resolve_device(device)
     if len(scalars) == 0:
         return ed.IDENTITY

@@ -9,9 +9,9 @@
 //                           lane's LSB-first walk over table[i] = 2^i base
 //   B3c grid_points_kernel  _build_grid (:155): per cell, x < p, y < p and
 //                           on the curve, and the extended point (x, y, 1, xy)
-//   B3d point_add_kernel    _build_ext_add (:176): out[i] = a[i] + b[i], also
-//                           each level of the tree sums (_build_msm's and
-//                           _build_grid's gp.tree_sum)
+//   B3d point_add_kernel    _build_ext_add (:176): out[i] = a[i] + b[i], and
+//                           the tree sums (_build_msm's and _build_grid's
+//                           gp.tree_sum) in one or two launches
 //
 // Contract: bit equality with the plain PyTorch versions (field.py,
 // group.py), not only equality mod p. A field element is 16 radix-2^16
@@ -44,16 +44,21 @@
 // IMAD.WIDE, two passes of the FMA pipe; the carries, folds and selects go
 // to the ALU pipe. At the settle's 8,192 lanes B3a does 256 doubles and,
 // for random scalars, ~128 adds a lane: about 8.7e9 FMA lane-passes, 0.5 ms
-// at the H100 SXM's 132 SMs x 64 lanes x 1.98 GHz. chip_smoke.py counts the
-// pipes of one add from B3d's SASS and of one double from constants read
-// off the one-thread-a-lane B3a's SASS (git 86a9ec2), so that the bound of
-// B3a and B3b measures the work and not the layout that does it. The bytes
-// are small (the points once in and out).
+// at the H100 SXM's 132 SMs x 64 lanes x 1.98 GHz. chip_smoke.py counts
+// every bound's work from this arithmetic (field_work: an add, a double, a
+// wire cell's verdict of 2 squares and 2 products and its point's product),
+// so that every bound measures the work and not the layout or the listing
+// that does it; the one-thread kernels' listings issued 1.4-2.1 times those
+// FMA passes. The bytes are small (the points once in and out), but for
+// B3c's points.
 //
 // Design. The TPU runs each program as XLA's fused vector loops over every
 // lane at once, with the field product as an int64 matmul against a 0/1
-// routing matrix. B3c and B3d keep one thread a cell or pair and its points
-// in registers, with B2's schoolbook product into 31 int64 accumulators.
+// routing matrix. B3c keeps one thread a cell: a cell is five products and
+// two canonical forms, and a wave holds 502,400 cells, so nothing needs
+// splitting; its products sum by output limb against 38 b ‖ b (16 int64
+// sums live, not 31 diagonals), and its points leave through shared memory
+// so that a warp's stores are contiguous.
 // A lane of B3a or B3b is one long dependent chain (256 steps of 8 products
 // for a double and 9 for an add); one thread a lane needed 255 registers
 // and spilled, and left one warp a scheduler at the settle's 8,192 lanes.
@@ -82,6 +87,14 @@
 //        table rows come into shared memory by cp.async while the word
 //        before runs its steps, are range-checked there (every row, set or
 //        not), and each set row's B factors are formed once, off the chain.
+//   B3d  kAddGroup threads an add, B3a's msm_add: both operands loaded, the
+//        second's B factors formed once an add. A tree is column sums over
+//        a [rows, cols] view: a block holds up to 2 kTreeGroups members of
+//        a column, each group summing its class on its own, then the
+//        groups' partials level by level in shared memory; a wider tree
+//        is two launches (cuda_ladder.tree_plan). The grid tree forms each
+//        cell's point as it loads it, so the wave's [64, 7,850, 4, 16]
+//        points are never written.
 // The constants were chosen from tools/ladder_ab.py's times of each G on
 // the H100 (PERF.md). Tensor cores are not used: Hopper's integer MMA
 // (mma and wgmma, s8/u8 into s32) takes 8-bit factors, so a signed 16-bit
@@ -94,11 +107,13 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kLimbs = 16;
 constexpr int kPointLimbs = 4 * kLimbs;
-constexpr int kCellThreads = 64;  // B3c, B3d
+constexpr int kCellThreads = 64;  // B3c
 constexpr int64_t kLoose = 1 << 19;  // B3a, B3b, B3d: limbs in (-2^19, 2^19)
 
 // p = 2^255 - 19
@@ -114,6 +129,12 @@ __constant__ int32_t kEightP[kLimbs] = {
 __constant__ int32_t kD[kLimbs] = {
     0x78A3, 0x1359, 0x4DCA, 0x75EB, 0xD8AB, 0x4141, 0x0A4D, 0x0070,
     0xE898, 0x7779, 0x4079, 0x8CC7, 0xFE73, 0x2B6F, 0x6CEE, 0x5203};
+// 38 d, limb-wise: the folded half of d as fe_mul's B factor
+__constant__ int32_t kD38[kLimbs] = {
+    38 * 0x78A3, 38 * 0x1359, 38 * 0x4DCA, 38 * 0x75EB, 38 * 0xD8AB,
+    38 * 0x4141, 38 * 0x0A4D, 38 * 0x0070, 38 * 0xE898, 38 * 0x7779,
+    38 * 0x4079, 38 * 0x8CC7, 38 * 0xFE73, 38 * 0x2B6F, 38 * 0x6CEE,
+    38 * 0x5203};
 // 2d mod p
 __constant__ int32_t kD2[kLimbs] = {
     0xF159, 0x26B2, 0x9B94, 0xEBD6, 0xB156, 0x8283, 0x149A, 0x00E0,
@@ -147,57 +168,63 @@ __device__ __forceinline__ void carry32(Fe& x) {
   for (int k = 1; k < kLimbs; ++k) x[k] = (x[k] & 0xFFFF) + c[k - 1];
 }
 
-// fold the 31 diagonal sums (hi[15] = 0), two passes, narrow: field.fmul's
-// tail. d[k] for k < 16 is lo[k], d[16 + k] is hi[k].
-__device__ __forceinline__ void fold_carry(const int64_t (&d)[2 * kLimbs - 1],
-                                           Fe& r) {
-  int64_t x[kLimbs];
-#pragma unroll
-  for (int k = 0; k < kLimbs - 1; ++k) x[k] = d[k] + 38 * d[k + kLimbs];
-  x[kLimbs - 1] = d[kLimbs - 1];
+// the two carry passes of field.fmul over the folded sums x[k] = lo[k] +
+// 38 hi[k], then narrow
+__device__ __forceinline__ void carry_narrow(int64_t (&x)[kLimbs], Fe& r) {
   carry64(x);
   carry64(x);
 #pragma unroll
   for (int k = 0; k < kLimbs; ++k) r[k] = (int32_t)x[k];
 }
 
-// r = a b (field.fmul); r may alias a or b
+// r = a b (field.fmul) by output limb: x[k] = sum_i a[i] B[k - i + 16]
+// with B = 38 b ‖ b (b38 = 38 b), which is lo[k] + 38 hi[k] at once (the
+// diagonal sums are exact integers, so any order gives the same bits): 16
+// int64 sums, as a Group's rank computes its limbs; r may alias a or b
+__device__ __forceinline__ void fe_mul(const Fe& a, const int32_t (&b)[kLimbs],
+                                       const int32_t (&b38)[kLimbs], Fe& r) {
+  int64_t x[kLimbs];
+#pragma unroll
+  for (int k = 0; k < kLimbs; ++k) x[k] = 0;
+#pragma unroll
+  for (int i = 0; i < kLimbs; ++i) {
+#pragma unroll
+    for (int j = 0; j < kLimbs; ++j) {
+      if (i + j < kLimbs) x[i + j] += (int64_t)a[i] * b[j];
+      else x[i + j - kLimbs] += (int64_t)a[i] * b38[j];
+    }
+  }
+  carry_narrow(x, r);
+}
+
 __device__ __forceinline__ void fe_mul(const Fe& a, const Fe& b, Fe& r) {
-  int64_t d[2 * kLimbs - 1];
+  Fe b38;
 #pragma unroll
-  for (int k = 0; k < 2 * kLimbs - 1; ++k) d[k] = 0;
-#pragma unroll
-  for (int i = 0; i < kLimbs; ++i) {
-#pragma unroll
-    for (int j = 0; j < kLimbs; ++j) d[i + j] += (int64_t)a[i] * b[j];
-  }
-  fold_carry(d, r);
+  for (int k = 0; k < kLimbs; ++k) b38[k] = 38 * b[k];
+  fe_mul(a, b, b38, r);
 }
 
-// r = a a: the same diagonal sums as fe_mul(a, a), each off-diagonal
-// product taken once and doubled (2 a[j] < 2^20 in magnitude)
+// r = a a: the same sums as fe_mul(a, a), each unordered pair of limbs
+// once, doubled (sqr_part's formula with F = 38 a ‖ a in registers)
 __device__ __forceinline__ void fe_sqr(const Fe& a, Fe& r) {
-  int64_t d[2 * kLimbs - 1];
+  int32_t a38[kLimbs];
 #pragma unroll
-  for (int k = 0; k < 2 * kLimbs - 1; ++k) d[k] = 0;
+  for (int k = 0; k < kLimbs; ++k) a38[k] = 38 * a[k];
+  // F(i) = a[i] for i >= 0, 38 a[i + 16] for i < 0
+#define F_(i) ((i) >= 0 ? a[(i) & 15] : a38[((i) + kLimbs) & 15])
+  int64_t x[kLimbs];
 #pragma unroll
-  for (int i = 0; i < kLimbs; ++i) {
-    d[2 * i] += (int64_t)a[i] * a[i];
+  for (int h = 0; h < kLimbs / 2; ++h) {
+    int64_t even = 0, odd = 0;
 #pragma unroll
-    for (int j = i + 1; j < kLimbs; ++j) d[i + j] += (int64_t)a[i] * (2 * a[j]);
+    for (int d = 1; d < 8; ++d) even += (int64_t)a[h + d] * F_(h - d);
+#pragma unroll
+    for (int d = 0; d < 8; ++d) odd += (int64_t)a[h + 1 + d] * F_(h - d);
+    x[2 * h] = 2 * even + (int64_t)a[h] * a[h] + (int64_t)a[h + 8] * a38[h + 8];
+    x[2 * h + 1] = 2 * odd;
   }
-  fold_carry(d, r);
-}
-
-// r = a b with b one of the __constant__ tables (d or 2d), copied into
-// registers first so that fe_mul reads it like any other element
-__device__ __forceinline__ void fe_mul_table(const Fe& a,
-                                             const int32_t (&table)[kLimbs],
-                                             Fe& r) {
-  Fe b;
-#pragma unroll
-  for (int k = 0; k < kLimbs; ++k) b[k] = table[k];
-  fe_mul(a, b, r);
+#undef F_
+  carry_narrow(x, r);
 }
 
 __device__ __forceinline__ void fe_add(const Fe& a, const Fe& b, Fe& r) {
@@ -212,62 +239,8 @@ __device__ __forceinline__ void fe_sub(const Fe& a, const Fe& b, Fe& r) {
   carry32(r);
 }
 
-// group.point_add, formula for formula; r may alias p or q
-__device__ __forceinline__ void point_add(const Point& p, const Point& q,
-                                          Point& r) {
-  Fe s1, s2, a, b;
-  fe_sub(p.v[1], p.v[0], s1);
-  fe_sub(q.v[1], q.v[0], s2);
-  fe_mul(s1, s2, a);
-  fe_add(p.v[1], p.v[0], s1);
-  fe_add(q.v[1], q.v[0], s2);
-  fe_mul(s1, s2, b);
-  Fe e, h;
-  fe_sub(b, a, e);
-  fe_add(b, a, h);
-  Fe c;
-  fe_mul_table(p.v[3], kD2, s1);  // c = (t1 2d) t2
-  fe_mul(s1, q.v[3], c);
-  Fe dd;
-  fe_mul(p.v[2], q.v[2], s1);  // zz
-  fe_add(s1, s1, dd);
-  Fe f, g;
-  fe_sub(dd, c, f);
-  fe_add(dd, c, g);
-  fe_mul(e, f, r.v[0]);
-  fe_mul(g, h, r.v[1]);
-  fe_mul(f, g, r.v[2]);
-  fe_mul(e, h, r.v[3]);
-}
-
 __device__ __forceinline__ bool loose(long long v) {
   return v > -kLoose && v < kLoose;
-}
-
-// load a [4, 16] int64 point (16-byte aligned); false if a limb lies
-// outside (-2^19, 2^19)
-__device__ __forceinline__ bool load_point(const int64_t* __restrict__ src,
-                                           Point& p) {
-  const longlong2* s = reinterpret_cast<const longlong2*>(src);
-  bool ok = true;
-#pragma unroll
-  for (int k = 0; k < kPointLimbs / 2; ++k) {
-    const longlong2 w = __ldg(s + k);
-    ok &= loose(w.x) & loose(w.y);
-    p.v[k / 8][(2 * k) % kLimbs] = (int32_t)w.x;
-    p.v[k / 8][(2 * k) % kLimbs + 1] = (int32_t)w.y;
-  }
-  return ok;
-}
-
-__device__ __forceinline__ void store_point(int64_t* __restrict__ dst,
-                                            const Point& p) {
-  longlong2* d = reinterpret_cast<longlong2*>(dst);
-#pragma unroll
-  for (int k = 0; k < kPointLimbs / 2; ++k) {
-    d[k] = make_longlong2(p.v[k / 8][(2 * k) % kLimbs],
-                          p.v[k / 8][(2 * k) % kLimbs + 1]);
-  }
 }
 
 // ------------------------------------------------------- B3a, B3b: groups
@@ -443,6 +416,68 @@ __device__ __forceinline__ Part<Group<G>::L> sub_part(
   return r;
 }
 
+// a point as the second operand of an add: its B factors y - x, y + x, t, z
+template <int G>
+__device__ __forceinline__ void put_point_b(const Group<G>& g,
+                                            int32_t (&q)[4][2 * kLimbs],
+                                            const PointPart<Group<G>::L>& p) {
+  put_b(g, q[0], sub_part(g, p.c[1], p.c[0]));
+  put_b(g, q[1], add_part(g, p.c[1], p.c[0]));
+  put_b(g, q[2], p.c[3]);
+  put_b(g, q[3], p.c[2]);
+}
+
+// rank t's limbs of the [4, 16] int64 point at src; false if one lies
+// outside (-2^19, 2^19)
+template <int G>
+__device__ __forceinline__ bool load_part(const Group<G>& g,
+                                          const int64_t* __restrict__ src,
+                                          PointPart<Group<G>::L>& p) {
+  constexpr int L = Group<G>::L;
+  bool ok = true;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int64_t* s = src + c * kLimbs + g.k0;
+    if constexpr (L % 2 == 0) {
+#pragma unroll
+      for (int r = 0; r < L; r += 2) {
+        const longlong2 w = __ldg(reinterpret_cast<const longlong2*>(s + r));
+        ok &= loose(w.x) & loose(w.y);
+        p.c[c].v[r] = (int32_t)w.x;
+        p.c[c].v[r + 1] = (int32_t)w.y;
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < L; ++r) {
+        const long long v = __ldg(s + r);
+        ok &= loose(v);
+        p.c[c].v[r] = (int32_t)v;
+      }
+    }
+  }
+  return ok;
+}
+
+template <int G>
+__device__ __forceinline__ void store_part(const Group<G>& g,
+                                           int64_t* __restrict__ dst,
+                                           const PointPart<Group<G>::L>& p) {
+  constexpr int L = Group<G>::L;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    int64_t* d = dst + c * kLimbs + g.k0;
+    if constexpr (L % 2 == 0) {
+#pragma unroll
+      for (int r = 0; r < L; r += 2)
+        reinterpret_cast<longlong2*>(d + r)[0] =
+            make_longlong2(p.c[c].v[r], p.c[c].v[r + 1]);
+    } else {
+#pragma unroll
+      for (int r = 0; r < L; ++r) d[r] = p.c[c].v[r];
+    }
+  }
+}
+
 // rank t's limbs of a b: a in registers, B = 38 b ‖ b
 template <int G>
 __device__ __forceinline__ Part<Group<G>::L> mul_regs(
@@ -527,9 +562,9 @@ struct alignas(16) MsmSmem {
 };
 
 // X = e f, Y = g h, Z = f g, T = e h: the tail of point_add and
-// point_double
-template <int G>
-__device__ __forceinline__ void msm_finish(const Group<G>& g, MsmSmem& s,
+// point_double (S: MsmSmem or AddSmem, whose e and fhg it writes)
+template <int G, class S>
+__device__ __forceinline__ void msm_finish(const Group<G>& g, S& s,
                                            const Part<Group<G>::L>& e,
                                            const Part<Group<G>::L>& f,
                                            const Part<Group<G>::L>& gg,
@@ -570,10 +605,13 @@ __device__ __forceinline__ void msm_double(const Group<G>& g, MsmSmem& s,
   msm_finish(g, s, e, f, gg, h, p);
 }
 
-// group.point_add of acc and the lane's point (its B factors in s.p; 2d's
-// in d2); r may be acc
-template <int G>
-__device__ __forceinline__ void msm_add(const Group<G>& g, MsmSmem& s,
+// group.point_add of acc and a second point q, given as its B factors
+// (y - x, y + x, t, z; 2d's in d2), acc the left operand; r may be acc.
+// It writes s.sq[0..2], then s.e and s.fhg; q is read before the barrier
+// of msm_finish (S: MsmSmem or AddSmem)
+template <int G, class S>
+__device__ __forceinline__ void msm_add(const Group<G>& g, S& s,
+                                        const int32_t (&q)[4][2 * kLimbs],
                                         const int32_t* d2,
                                         PointPart<Group<G>::L>& acc) {
   put_a(g, s.sq[0], sub_part(g, acc.c[1], acc.c[0]));
@@ -581,13 +619,13 @@ __device__ __forceinline__ void msm_add(const Group<G>& g, MsmSmem& s,
   put_a(g, s.sq[1], acc.c[3]);
   put_a(g, s.sq[1] + kLimbs, acc.c[2]);
   __syncwarp(g.mask);
-  const auto a = mul_part(g, s.sq[0], s.p[0]);
-  const auto b = mul_part(g, s.sq[0] + kLimbs, s.p[1]);
+  const auto a = mul_part(g, s.sq[0], q[0]);
+  const auto b = mul_part(g, s.sq[0] + kLimbs, q[1]);
   const auto u = mul_part(g, s.sq[1], d2);  // t1 2d
-  const auto zz = mul_part(g, s.sq[1] + kLimbs, s.p[3]);
+  const auto zz = mul_part(g, s.sq[1] + kLimbs, q[3]);
   put_a(g, s.sq[2], u);
   __syncwarp(g.mask);
-  const auto c = mul_part(g, s.sq[2], s.p[2]);  // (t1 2d) t2
+  const auto c = mul_part(g, s.sq[2], q[2]);  // (t1 2d) t2
   const auto e = sub_part(g, b, a);
   const auto h = add_part(g, b, a);
   const auto dd = add_part(g, zz, zz);
@@ -616,22 +654,8 @@ msm_ladder_kernel(const uint32_t* __restrict__ bits, int words,
 
   // rank t's limbs of the point, checked as loaded
   PointPart<L> p;
-  bool ok = true;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int64_t* src = pts + i * kPointLimbs + c * kLimbs + g.k0;
-#pragma unroll
-    for (int r = 0; r < L; ++r) {
-      const long long v = __ldg(src + r);
-      ok &= loose(v);
-      p.c[c].v[r] = (int32_t)v;
-    }
-  }
-  if (!ok) *bad = 1;
-  put_b(g, s.p[0], sub_part(g, p.c[1], p.c[0]));
-  put_b(g, s.p[1], add_part(g, p.c[1], p.c[0]));
-  put_b(g, s.p[2], p.c[3]);
-  put_b(g, s.p[3], p.c[2]);
+  if (!load_part(g, pts + i * kPointLimbs, p)) *bad = 1;
+  put_point_b(g, s.p, p);
 
   PointPart<L> acc;  // the identity (0, 1, 1, 0)
 #pragma unroll
@@ -648,15 +672,10 @@ msm_ladder_kernel(const uint32_t* __restrict__ bits, int words,
 #pragma unroll 1
     for (int b = 0; b < 32; ++b) {
       msm_double(g, s, acc);
-      if ((word >> b) & 1u) msm_add(g, s, d2, acc);
+      if ((word >> b) & 1u) msm_add(g, s, s.p, d2, acc);
     }
   }
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    int64_t* dst = out + i * kPointLimbs + c * kLimbs + g.k0;
-#pragma unroll
-    for (int r = 0; r < L; ++r) dst[r] = acc.c[c].v[r];
-  }
+  store_part(g, out + i * kPointLimbs, acc);
 }
 
 // ------------------------------------------------------------------ B3b
@@ -878,7 +897,7 @@ __device__ __forceinline__ bool on_curve(const Fe& x, const Fe& y) {
   fe_sqr(y, yy);
   fe_sub(yy, xx, lhs);
   fe_mul(xx, yy, t);
-  fe_mul_table(t, kD, t);
+  fe_mul(t, kD, kD38, t);  // d's limbs read from constant memory
   t[0] += 1;  // fadd(ONE, d xx yy)
   carry32(t);
   canonical(lhs);
@@ -889,48 +908,228 @@ __device__ __forceinline__ bool on_curve(const Fe& x, const Fe& y) {
   return eq;
 }
 
+// one thread a cell (kCellThreads a block): the cell's work is short and
+// the wave holds 502,400 cells, so no chain needs splitting; the products
+// keep 16 int64 sums each (fe_mul, fe_sqr). With Points, also the point
+// (x, y, 1, x y), formed first so that x and y die with the verdict's
+// squares, and staged in shared memory so that the block writes its
+// points' bytes in order, a warp 512 contiguous bytes a store; without,
+// the verdict alone (grid_sum's path, where the tree forms the points as
+// it loads the cells)
+template <bool Points>
 __global__ void __launch_bounds__(kCellThreads)
 grid_points_kernel(const int64_t* __restrict__ xy, uint8_t* __restrict__ ok,
                    int64_t* __restrict__ pts, int* __restrict__ bad,
                    long long cells) {
-  const long long i = (long long)blockIdx.x * kCellThreads + threadIdx.x;
-  if (i >= cells) return;
-  Point p;
-  uint64_t all = 0;  // the OR of the cell's 32 raw limbs
-  const longlong2* cell = reinterpret_cast<const longlong2*>(xy + i * 2 * kLimbs);
+  constexpr int kRow = kPointLimbs / 2;  // a point's 16-byte words
+  // a cell's words, padded by one so that a quarter warp's stores hit
+  // distinct banks
+  __shared__ longlong2 stage[Points ? kCellThreads : 1][kRow + 1];
+  const long long first = (long long)blockIdx.x * kCellThreads;
+  const long long i = first + threadIdx.x;
+  if (i < cells) {
+    Fe x, y;
+    uint64_t all = 0;  // the OR of the cell's 32 raw limbs
+    const longlong2* cell =
+        reinterpret_cast<const longlong2*>(xy + i * 2 * kLimbs);
 #pragma unroll
-  for (int k = 0; k < kLimbs / 2; ++k) {
-    const longlong2 vx = __ldg(cell + k);
-    const longlong2 vy = __ldg(cell + kLimbs / 2 + k);
-    all |= (uint64_t)vx.x | (uint64_t)vx.y | (uint64_t)vy.x | (uint64_t)vy.y;
-    p.v[0][2 * k] = (int32_t)vx.x;
-    p.v[0][2 * k + 1] = (int32_t)vx.y;
-    p.v[1][2 * k] = (int32_t)vy.x;
-    p.v[1][2 * k + 1] = (int32_t)vy.y;
+    for (int k = 0; k < kLimbs / 2; ++k) {
+      const longlong2 vx = __ldg(cell + k);
+      const longlong2 vy = __ldg(cell + kLimbs / 2 + k);
+      all |= (uint64_t)vx.x | (uint64_t)vx.y | (uint64_t)vy.x | (uint64_t)vy.y;
+      x[2 * k] = (int32_t)vx.x;
+      x[2 * k + 1] = (int32_t)vx.y;
+      y[2 * k] = (int32_t)vy.x;
+      y[2 * k + 1] = (int32_t)vy.y;
+    }
+    // a wire limb outside [0, 2^16) (a negative one has its top bit set)
+    if (all >> 16) *bad = 1;
+    if constexpr (Points) {
+      Fe t;
+      fe_mul(x, y, t);
+      longlong2* d = stage[threadIdx.x];
+#pragma unroll
+      for (int k = 0; k < kLimbs / 2; ++k) {
+        d[k] = make_longlong2(x[2 * k], x[2 * k + 1]);
+        d[kLimbs / 2 + k] = make_longlong2(y[2 * k], y[2 * k + 1]);
+        d[kLimbs + k] = make_longlong2(k == 0 ? 1 : 0, 0);
+        d[3 * kLimbs / 2 + k] = make_longlong2(t[2 * k], t[2 * k + 1]);
+      }
+    }
+    const bool canon = lt_p(x) & lt_p(y);
+    ok[i] = (uint8_t)(canon & on_curve(x, y));
   }
-  // a wire limb outside [0, 2^16) (a negative one has its top bit set)
-  if (all >> 16) *bad = 1;
-  ok[i] = (uint8_t)(lt_p(p.v[0]) & lt_p(p.v[1]) & on_curve(p.v[0], p.v[1]));
-#pragma unroll
-  for (int k = 0; k < kLimbs; ++k) p.v[2][k] = 0;
-  p.v[2][0] = 1;
-  fe_mul(p.v[0], p.v[1], p.v[3]);
-  store_point(pts + i * kPointLimbs, p);
+  if constexpr (Points) {
+    __syncthreads();
+    const long long n = cells - first < kCellThreads ? cells - first
+                                                     : kCellThreads;
+    longlong2* out = reinterpret_cast<longlong2*>(pts + first * kPointLimbs);
+    for (int w = threadIdx.x; w < n * kRow; w += kCellThreads)
+      out[w] = stage[w / kRow][w % kRow];
+  }
 }
 
 // ------------------------------------------------------------------ B3d
 
-__global__ void __launch_bounds__(kCellThreads)
-point_add_kernel(const int64_t* __restrict__ a, const int64_t* __restrict__ b,
-                 int64_t* __restrict__ out, int* __restrict__ bad, long long n) {
-  const long long i = (long long)blockIdx.x * kCellThreads + threadIdx.x;
-  if (i >= n) return;
-  Point p, q;
-  const bool ok = load_point(a + i * kPointLimbs, p)
-      & load_point(b + i * kPointLimbs, q);
+// B3d's layout: G = kAddGroup threads a point add (Group, the product of
+// B3a), kAddThreads a block for the pointwise add, kTreeGroups groups a
+// block of a tree launch, so that one block reduces up to 2 kTreeGroups
+// points
+constexpr int kAddGroup = 8;
+constexpr int kAddThreads = 128;
+constexpr int kTreeGroups = 64;
+
+// a group's shared memory: the second operand's B factors (q: y - x,
+// y + x, t, z), which the group's own adds read and, in a tree, the level
+// after its last add reads from another group, and msm_add's scratch
+struct alignas(16) AddSmem {
+  int32_t q[4][2 * kLimbs];
+  int32_t sq[3][2 * kLimbs];
+  int32_t e[kLimbs];
+  int32_t fhg[3][2 * kLimbs];
+};
+
+// the point (x, y, 1, x y) of the wire cell at src (x, y limbs in [0,
+// 2^16); ok cleared if one lies outside), or the identity (0, 1, 1, 0)
+// where its grid is invalid: grid_points_plain's point, masked as
+// grid_sum masks it. The product meets in s.sq[2] (x as A) and s.sq[0] (y
+// as B), between two barriers of the group, so that the adds around it
+// keep their slots' order
+template <int G>
+__device__ __forceinline__ PointPart<Group<G>::L> cell_point(
+    const Group<G>& g, AddSmem& s, const int64_t* __restrict__ src,
+    bool valid, bool& ok) {
+  constexpr int L = Group<G>::L;
+  Part<L> x, y;
+  uint64_t all = 0;
+#pragma unroll
+  for (int r = 0; r < L; ++r) {
+    const long long vx = __ldg(src + g.k0 + r);
+    const long long vy = __ldg(src + kLimbs + g.k0 + r);
+    all |= (uint64_t)vx | (uint64_t)vy;
+    x.v[r] = (int32_t)vx;
+    y.v[r] = (int32_t)vy;
+  }
+  ok &= (all >> 16) == 0;
+  PointPart<L> p;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+#pragma unroll
+    for (int r = 0; r < L; ++r) p.c[c].v[r] = 0;
+  }
+  if (g.t == 0) p.c[1].v[0] = p.c[2].v[0] = 1;  // the identity; Z = 1
+  if (valid) {
+    put_a(g, s.sq[2], x);
+    put_b(g, s.sq[0], y);
+    __syncwarp(g.mask);
+    p.c[0] = x;
+    p.c[1] = y;
+    p.c[3] = mul_part(g, s.sq[2], s.sq[0]);
+    __syncwarp(g.mask);
+  }
+  return p;
+}
+
+// the deepest stack of the sequential part of a tree (2^31 members a group)
+constexpr int kTreeDepth = 32;
+
+// Column sums of a [rows, cols] batch of points (Cells: of wire cells,
+// each made a point by cell_point, with grid_ok[f / row_cells] its grid's
+// verdict, f the cell's flat index): out[c] = the sum over r of member
+// (r, c), paired as gp.tree_sum pairs them, level l adding i and
+// i + half with the first half the left operand. Rows r < rows / 2 lie at
+// lo + (r cols + c), the rest at hi + ((r - rows / 2) cols + c), so that
+// a pointwise add (rows = 2) takes its two operands apart.
+//
+// Output j of level k of a tree of n members is the sum, in the tree's
+// own order, of the 2^k members congruent to j mod n / 2^k. So a column
+// of rows members is split among q = min(Groups, rows / 2) groups: group
+// j first reduces its class (members j, j + q, ...: rows / q of them,
+// paired likewise) on its own, an add at a time, then the q groups'
+// partials meet through shared memory, level by level, a __syncthreads a
+// level: the groups of the upper half write their partial as B factors
+// into their own slot, and those of the lower half add it. A slot is
+// written once after the group's own adds (past their barriers) and read
+// once, by another group, after the level's barrier; no group writes a
+// slot that a group still reads. A block holds Groups / q columns. The
+// class is reduced in the bit-reversed order, where the tree pairs
+// neighbours, with a stack of partials (used once a class has four
+// members or more).
+template <int G, int Groups, bool Cells>
+__global__ void __launch_bounds__(Groups * G)
+point_add_kernel(const int64_t* __restrict__ lo, const int64_t* __restrict__ hi,
+                 const uint8_t* __restrict__ grid_ok, long long row_cells,
+                 int64_t* __restrict__ out, int* __restrict__ bad, int rows,
+                 long long cols) {
+  constexpr int L = Group<G>::L;
+  constexpr int kWidth = Cells ? 2 * kLimbs : kPointLimbs;  // limbs a member
+  extern __shared__ __align__(16) unsigned char tree_smem[];
+  __shared__ __align__(16) int32_t d2[2 * kLimbs];  // 38 (2d) ‖ 2d
+  AddSmem* smem = reinterpret_cast<AddSmem*>(tree_smem);
+  for (int k = threadIdx.x; k < kLimbs; k += Groups * G) {
+    d2[k] = 38 * kD2[k];
+    d2[kLimbs + k] = kD2[k];
+  }
+  __syncthreads();
+  const Group<G> g(threadIdx.x);
+  const int group = threadIdx.x / G;
+  AddSmem& s = smem[group];
+  const int half = rows / 2;
+  const int q = half < 1 ? 1 : (half < Groups ? half : Groups);
+  const int per = rows / q;  // members of a group's class
+  const long long col = (long long)blockIdx.x * (Groups / q) + group / q;
+  const int j = group % q;
+  const bool live = col < cols;
+  bool ok = true;
+
+  // member (r, col) as a point, checked as loaded
+  auto member = [&](int r) {
+    const long long f = (long long)r * cols + col;
+    const int64_t* src = r < half || rows == 1
+        ? lo + f * kWidth : hi + (f - (long long)half * cols) * kWidth;
+    PointPart<L> p;
+    if constexpr (Cells) {
+      // the grid of the cell: its row where the launch views the cells
+      // as they lie, [grids, cells a grid]
+      const long long grid = row_cells == cols ? r : f / row_cells;
+      p = cell_point(g, s, src, grid_ok[grid] != 0, ok);
+    } else {
+      ok &= load_part(g, src, p);
+    }
+    return p;
+  };
+
+  PointPart<L> acc;
+  if (live) {
+    if (per == 1) {
+      acc = member(j);
+    } else {
+      PointPart<L> stack[kTreeDepth];
+      int bits = 0;
+      while ((1 << bits) < per) ++bits;
+      for (int v = 0; v < per; v += 2) {
+        // the pair (u, u + per / 2), u = v bit-reversed, on the way up
+        const int u = (int)(__brev((unsigned)v) >> (32 - bits));
+        acc = member(j + u * q);
+        put_point_b(g, s.q, member(j + (u + per / 2) * q));
+        msm_add(g, s, s.q, d2, acc);
+        int h = 1;
+        for (; ((v + 1) >> h) & 1; ++h) {  // the left partial waits below
+          put_point_b(g, s.q, acc);
+          acc = stack[h];
+          msm_add(g, s, s.q, d2, acc);
+        }
+        if (v + 2 < per) stack[h] = acc;
+      }
+    }
+  }
+  for (int n = q; n > 1; n /= 2) {
+    if (live && j >= n / 2 && j < n) put_point_b(g, s.q, acc);
+    __syncthreads();
+    if (live && j < n / 2) msm_add(g, s, smem[group + n / 2].q, d2, acc);
+  }
   if (!ok) *bad = 1;
-  point_add(p, q, p);
-  store_point(out + i * kPointLimbs, p);
+  if (live && j == 0) store_part(g, out + col * kPointLimbs, acc);
 }
 
 int blocks_for(long long n, int threads, unsigned* blocks) {
@@ -939,6 +1138,49 @@ int blocks_for(long long n, int threads, unsigned* blocks) {
   if (b > INT_MAX) return (int)cudaErrorInvalidValue;
   *blocks = (unsigned)b;
   return (int)cudaSuccess;
+}
+
+// let `kernel` take `smem` bytes of dynamic shared memory where that is
+// above the default 48 KB, once a device (a host-side call that costs far
+// more than a small launch): `allowed` holds a bit a device, one word for
+// each kernel
+template <class Kernel>
+int allow_smem(Kernel kernel, int smem,
+               std::atomic<unsigned long long>& allowed) {
+  if (smem <= 48 * 1024) return (int)cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (allowed.load() & bit) return (int)cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) allowed.fetch_or(bit);
+  return (int)err;
+}
+
+// one launch of point_add_kernel<kAddGroup, Groups, Cells> over [rows,
+// cols], its groups' shared memory dynamic
+template <int Groups, bool Cells>
+int launch_tree(const int64_t* lo, const int64_t* hi, const uint8_t* grid_ok,
+                long long row_cells, int64_t* out, int* bad, long long rows,
+                long long cols, void* stream) {
+  if (rows <= 0 || rows > INT_MAX || (rows & (rows - 1))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long q = rows / 2 < 1 ? 1 : rows / 2 < Groups ? rows / 2 : Groups;
+  unsigned blocks;
+  const int rc = blocks_for(cols, Groups / (int)q, &blocks);
+  if (rc != (int)cudaSuccess) return rc;
+  auto kernel = point_add_kernel<kAddGroup, Groups, Cells>;
+  const int smem = Groups * (int)sizeof(AddSmem);
+  static std::atomic<unsigned long long> allowed{0};  // this instance's
+  const int err = allow_smem(kernel, smem, allowed);
+  if (err != (int)cudaSuccess) return err;
+  kernel<<<blocks, Groups * kAddGroup, smem,
+           static_cast<cudaStream_t>(stream)>>>(lo, hi, grid_ok, row_cells,
+                                                out, bad, (int)rows, cols);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -978,29 +1220,55 @@ int ed25519_fixed_walk(const uint32_t* bits, int words, const int64_t* table,
 }
 
 // B3c: for each of `cells` affine cells xy[c, 2, 16] (wire limbs in
-// [0, 2^16)), ok[c] = x < p & y < p & on the curve, and pts[c] =
-// (x, y, 1, x y) as a [4, 16] point.
+// [0, 2^16)), ok[c] = x < p & y < p & on the curve, and, unless pts is
+// null, pts[c] = (x, y, 1, x y) as a [4, 16] point.
 int ed25519_grid_points(const int64_t* xy, uint8_t* ok, int64_t* pts, int* bad,
                         long long cells, void* stream) {
   unsigned blocks;
   const int rc = blocks_for(cells, kCellThreads, &blocks);
   if (rc != (int)cudaSuccess) return rc;
-  grid_points_kernel<<<blocks, kCellThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(xy, ok, pts, bad,
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pts != nullptr) {
+    grid_points_kernel<true><<<blocks, kCellThreads, 0, s>>>(xy, ok, pts, bad,
                                                             cells);
+  } else {
+    grid_points_kernel<false><<<blocks, kCellThreads, 0, s>>>(xy, ok, pts,
+                                                             bad, cells);
+  }
   return (int)cudaGetLastError();
 }
 
 // B3d: out[i] = a[i] + b[i] for n points (out overlaps neither input).
 int ed25519_point_add(const int64_t* a, const int64_t* b, int64_t* out,
                       int* bad, long long n, void* stream) {
-  unsigned blocks;
-  const int rc = blocks_for(n, kCellThreads, &blocks);
-  if (rc != (int)cudaSuccess) return rc;
-  point_add_kernel<<<blocks, kCellThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(a, b, out, bad, n);
-  return (int)cudaGetLastError();
+  return launch_tree<kAddThreads / kAddGroup, false>(a, b, nullptr, 1, out,
+                                                     bad, 2, n, stream);
 }
+
+// B3d, a tree launch: out[c] = the column sum of pts viewed as [rows, cols]
+// (rows a power of two), in gp.tree_sum's pairing; out overlaps nothing.
+int ed25519_point_tree(const int64_t* pts, int64_t* out, int* bad,
+                       long long rows, long long cols, void* stream) {
+  return launch_tree<kTreeGroups, false>(
+      pts, pts + (rows / 2) * cols * kPointLimbs, nullptr, 1, out, bad, rows,
+      cols, stream);
+}
+
+// B3d, a grid tree launch: the same over the cells xy viewed as [rows,
+// cols, 2, 16], each cell the point (x, y, 1, x y) where grid_ok[f /
+// row_cells] (f its flat index) and the identity elsewhere.
+int ed25519_grid_tree(const int64_t* xy, const uint8_t* grid_ok, int64_t* out,
+                      int* bad, long long rows, long long cols,
+                      long long row_cells, void* stream) {
+  if (row_cells <= 0) return (int)cudaErrorInvalidValue;
+  return launch_tree<kTreeGroups, true>(
+      xy, xy + (rows / 2) * cols * 2 * kLimbs, grid_ok, row_cells, out, bad,
+      rows, cols, stream);
+}
+
+// the reach of one tree launch: it pairs up to 2 kTreeGroups members a
+// column in shared memory
+int ed25519_tree_groups(void) { return kTreeGroups; }
 
 const char* ed25519_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -11,13 +11,14 @@ reference's sizes:
      recover 3·q exactly;
   3. `run_cluster` on a `BatchStepper` mesh: 4 mnist peers a rank,
      8 iterations, 2 verifiers, 2 miners, 1 noiser, secure aggregation,
-     KRUM: every chain dump equal, and every round whose workers trained
-     (one mesh batch each) minted a non-empty block; with more peers than
-     the 5 committee seats every round has a worker, so at least 7 blocks
-     are non-empty, the reference's check. At one rank the 4 peers can all
-     draw seats, and the rounds without a worker follow the chain's hashes
-     (the reference's own run at one device: 7 of 8 blocks; the port's
-     chain, from its own minibatch streams, leaves others empty).
+     KRUM: every chain dump equal, and the blocks agree with the rounds
+     whose workers trained (one mesh batch each, `check_cluster_blocks`);
+     with more peers than the 5 committee seats every round has a
+     worker, so at least 7 blocks are non-empty, the reference's check.
+     At one rank the 4 peers can all draw seats, and the rounds without a
+     worker follow the chain's hashes (the reference's own run at one
+     device: 7 of 8 blocks; the port's chain, from its own minibatch
+     streams, leaves others empty).
 
     python -c "from biscotti_tpu_torch.multichip import dryrun_multichip; \\
                dryrun_multichip(1)"
@@ -42,7 +43,7 @@ example arguments on the card.
 from __future__ import annotations
 
 import asyncio
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -86,6 +87,33 @@ def entry(device: Optional[Union[str, torch.device]] = None):
 def _check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+def check_cluster_blocks(dump: str, trained: Dict[int, int],
+                         refused: int) -> int:
+    """Hold a device cluster's chain `dump` to the rounds it trained
+    (`trained`: workers served a delta, by iteration) and the updates its
+    verifiers refused; returns the number of non-empty blocks, and raises
+    when none was minted or a block could not have come from the run.
+
+    Every non-empty block comes from a trained round. A trained round
+    mints an empty block only when its intake closed on a refused
+    worker's decline before the accepted worker's shares came: the leader
+    miner mints once num_samples workers are accounted for (1 when the
+    seats take every peer), and Krum pools the first update to arrive. So
+    such a round had two workers or more, and there are no more such
+    rounds than refusals."""
+    blocks = [ln.split() for ln in dump.splitlines()[1:]]
+    real = {int(b[0].removeprefix("iter=")) for b in blocks
+            if b[1] != "ndeltas=0"}
+    _check(len(real) > 0 and real <= trained.keys(),
+           f"device cluster minted rounds {sorted(real)}, trained "
+           f"{sorted(trained)}")
+    empty = sorted(trained.keys() - real)
+    _check(all(trained[it] >= 2 for it in empty) and len(empty) <= refused,
+           f"device cluster: trained rounds {empty} minted empty blocks "
+           f"(workers {[trained[it] for it in empty]}, {refused} refused)")
+    return len(real)
 
 
 def _dryrun_rank(mesh, n_devices: int, base_port: int) -> Optional[str]:
@@ -138,11 +166,8 @@ def _dryrun_rank(mesh, n_devices: int, base_port: int) -> Optional[str]:
         return None
     dumps = [r["chain_dump"] for r in results]
     _check(all(dd == dumps[0] for dd in dumps), "chain oracle violated")
-    minted = sum(1 for ln in dumps[0].splitlines()[1:]
-                 if "ndeltas=0" not in ln)
-    _check(minted == stepper.batches and minted > 0,
-           f"device cluster minted {minted} non-empty blocks in "
-           f"{stepper.batches} trained rounds")
+    refused = sum(r["counters"].get("update_rejected", 0) for r in results)
+    minted = check_cluster_blocks(dumps[0], stepper.trained, refused)
     seats = dcfg.num_verifiers + dcfg.num_miners + dcfg.num_noisers
     _check(n_peers <= seats or minted >= n_iters - 1,
            f"device cluster minted only {minted} non-empty blocks of {n_iters}")

@@ -251,6 +251,11 @@ class BatchStepper(MeshBatches):
             return self._batched_step(w.to(self.device, torch.float32),
                                       self._x[peers, idx], self._y[peers, idx])
 
+    @property
+    def trained(self) -> Dict[int, int]:
+        """The workers served a delta, by iteration."""
+        return dict(self._served)
+
     async def _memo(self, cache: Dict, pending: Dict, key, compute):
         return await single_flight_memo(cache, pending, key, compute)
 

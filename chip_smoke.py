@@ -12,9 +12,9 @@ printed as one JSON line:
               sources by nvcc, one process each, started together, with
               ptxas's register and spill report, the on-curve kernel's SASS
               instruction mix, the Krum Gram kernel's (its FFMA and HMMA
-              counts) and each ladder kernel's (B3a-B3d, with their pipe
-              counts, registers and spills, and the source's layout
-              constants); B3a and B3b must spill nothing;
+              counts), each ladder kernel's (B3a-B3d) registers and spills
+              of every template instance, and the ladder source's layout
+              constants; no ladder kernel may spill;
   3. kernel   krum_scores kernel vs its plain PyTorch version on the card,
               random shapes up to (4096, 7850), a 30-row duplicate-tie case,
               a poison-cluster case whose accept set must be identical
@@ -66,18 +66,22 @@ printed as one JSON line:
               (msm == pedersen_commit_point, and not when one scalar
               changes); B3's launches over that intake (every kernel at
               least once) and over one more settle-width msm (B3a once,
-              B3d once for each of the 13 tree levels, nothing else);
+              B3d at most twice for its 13-level tree, nothing else);
               card == CPU port bit for bit on a small wave; host-clock
               times of every entry point; B3a-B3d against their plain
               versions at the settle's shapes (the msm's 8,192 lanes, the
               fixed-base walk at 4 x 256 and the Pedersen comb at 1 x 512,
-              the wave's 64 x 7,850 cells, ext_add's 7,850 pairs and the
-              msm's tree), bit for bit, each timed through its wrapper,
-              alone and plain (CUDA events) beside its bound (B3a's and
-              B3b's from the work of a double and an add frozen from the
-              one-thread ladders, B3d's SASS held to that add) and its
-              layout's occupancy bound; one torch.profiler window over
-              the msm (its kernel count recorded, not gated);
+              the wave's 64 x 7,850 cells, verdicts alone as `grid_sum`
+              runs B3c and with the points, ext_add's 7,850 pairs and the
+              msm's tree) and `grid_sum` whole on the wave (its tree one
+              B3d launch), bit for bit, each timed through its wrapper,
+              alone and plain (CUDA events) beside its bound (the work of
+              the field arithmetic of a double, an add and a wire cell,
+              counted from field.py's and group.py's operations; no
+              kernel's listing is read), its layout's occupancy bound and
+              resident warps; one
+              torch.profiler window over the msm (its kernel count
+              recorded, not gated);
   secagg      the secure-aggregation plane at the bench's mnist_100_dp_eps1
               width (d = 7,850, C = 785, k = 10, 3 miners at r = 2: 21
               shares, 7 rows a miner), the native library loaded: one
@@ -294,15 +298,50 @@ LADDER = {
             "biscotti_tpu/crypto/kernels/primitives.py:155"),
     "B3d": ("point_add_kernel", "point_add",
             "biscotti_tpu/crypto/kernels/primitives.py:176")}
-# the work of one point add and one double on the integer pipes, as the
-# one-thread-a-lane ladders compiled it (git 86a9ec2): `ladder_pipes` of
-# that tree's build line on an H100 80GB HBM3 at 700.00 W. The add is
-# B3d's listing (the kernel runs it still, and ladder_step_counts holds its
-# SASS to it every run); the double is that B3a's listing, one double and
-# one add, less B3d's. B3a's and B3b's bounds count this work.
-LADDER_ADD = {"fma": 6596, "alu": 3165, "either": 0, "issued": 7312}
-LADDER_DOUBLE = {"fma": 11192 - 6596, "alu": 4729 - 3165, "either": 0,
-                 "issued": 11774 - 7312}
+# The work of the ladders' field arithmetic on the integer pipes, counted
+# from field.py's and group.py's operations and not from any kernel's
+# listing, so that every bound of B3a-B3d measures the work whatever layout
+# does it. A limb product is one IMAD.WIDE, two FMA-pipe passes: a field
+# product takes 16 x 16 of them, a square 136 (each off-diagonal pair
+# once, doubled). The fold 38 hi is one operation a limb on either pipe,
+# once for each variable B factor (38 b is formed once an element; a
+# constant's is free). On the ALU pipe a carry pass is two operations a
+# limb (the mask and a shift-add), a product takes two passes, an add or a
+# subtraction one operation a limb and a pass, a canonical form four
+# passes and two conditional subtractions of p (two operations a limb
+# each), a compare (with p, or of two forms) one operation a limb. These
+# are the fewest instructions the arithmetic needs; the one-thread kernels'
+# listings issue 1.4-2.1 times their FMA passes
+# (tests/test_torch_ladder_bound.py).
+FIELD_LIMBS = 16
+
+
+def field_work(products=0, squares=0, folds=0, adds=0, canonicals=0,
+               compares=0) -> dict:
+    """Pipe counts ({fma, alu, either, issued}) of that much field
+    arithmetic, as set out above."""
+    n = FIELD_LIMBS
+    wide = n * n * products + n * (n + 1) // 2 * squares
+    passes = 2 * (products + squares) + adds + 4 * canonicals
+    alu = n * (2 * passes + adds + 4 * canonicals + compares)
+    either = n * folds
+    return {"fma": 2 * wide, "alu": alu, "either": either,
+            "issued": wide + alu + either}
+
+
+# group.point_add: 9 products (c = (t1 2d) t2 is two; 2d a constant), the B
+# factors y2 - x2, y2 + x2, t2, z2, then f, h, g; 9 adds and subtractions
+POINT_ADD = field_work(products=9, folds=7, adds=9)
+# group.point_double: 4 squares (x, y, z, x + y), 4 products (B factors f,
+# h, g), 6 adds and subtractions
+POINT_DOUBLE = field_work(products=4, squares=4, folds=7, adds=6)
+# B3c's verdict of one wire cell: field.lt_p of x and y; group.on_curve's
+# x^2, y^2, x^2 y^2 and d (x^2 y^2) (against 38 d), y^2 - x^2, 1 + d x^2
+# y^2, the two canonical forms compared
+CELL_VERDICT = field_work(products=2, squares=2, folds=3, adds=2,
+                          canonicals=2, compares=3)
+# the cell's point (x, y, 1, x y): one product, y's 38 y formed for y^2
+CELL_POINT = field_work(products=1)
 EXACT_SLACK = 1.1
 # the VSS intake at the bench's mnist secure-aggregation width
 # (bench.py:849-858: N = 100, sample_percent 0.70; config.py:170)
@@ -360,7 +399,7 @@ def emit(phase: str, **fields) -> None:
 
 def pipe_counts(mix) -> dict:
     """{fma, alu, either, issued}: what one thread's run through a SASS
-    listing (`mix`, {opcode: count}, as `sass_mix` reads it from the
+    listing (`mix`, {opcode: count}, as `_build.sass_mix` reads it from the
     library this run built) puts on the integer pipes:
       * fma: the FMA pipe's lane-passes, IMAD and IMUL, each IMAD.WIDE (a
         limb product with a 64-bit result) counted twice for its two
@@ -438,19 +477,6 @@ def summed(*cs: dict) -> dict:
     return {key: sum(c[key] for c in cs) for key in PIPES}
 
 
-def ladder_step_counts(mixes: dict) -> dict:
-    """{"add": LADDER_ADD, "double": LADDER_DOUBLE}: the work of one point
-    add and one double, frozen from the one-thread-a-lane ladders, so that
-    B3a's and B3b's bounds count the work whatever layout computes it.
-    B3d still runs that add, one thread a pair: its SASS (`mixes["B3d"]`)
-    must still give LADDER_ADD, pipe for pipe."""
-    add = pipe_counts(mixes["B3d"])
-    if any(add[k] != LADDER_ADD[k] for k in PIPES):
-        raise AssertionError(f"B3d's SASS no longer gives the frozen add: "
-                             f"{add} against {LADDER_ADD}")
-    return {"add": dict(LADDER_ADD), "double": dict(LADDER_DOUBLE)}
-
-
 def ladder_bound(work: dict, nbytes: int, warp_threads=None,
                  warps: int = 0) -> dict:
     """The least time for a ladder kernel's work: the larger of `work`
@@ -490,59 +516,118 @@ def warp_set_steps(bits: np.ndarray, lanes: int) -> np.ndarray:
     return np.unpackbits(union.view(np.uint8), axis=1).sum(axis=1)
 
 
-def msm_ladder_bound(mixes: dict, bits: np.ndarray, nbytes: int,
-                     layout: dict) -> dict:
+def msm_ladder_bound(bits: np.ndarray, nbytes: int, layout: dict) -> dict:
     """B3a's bound for `bits` ([m, words] packed) and `nbytes`: 32 words
-    doubles a lane and one add a set bit (ladder_step_counts), and the
+    doubles a lane and one add a set bit (POINT_DOUBLE, POINT_ADD), and the
     occupancy bound of the source's layout (`layout`: G = kMsmGroup threads
     a lane, so ceil(m G / 32) warps of 32 / G lanes), each thread doing
     1/G of its lane's work."""
-    step = ladder_step_counts(mixes)
     m, steps, g = len(bits), 32 * bits.shape[1], layout["kMsmGroup"]
     pop = int(np.unpackbits(bits.view(np.uint8)).sum())
     busiest = int(warp_set_steps(bits, 32 // g).max())
-    lane = summed(scaled(step["double"], steps), scaled(step["add"], busiest))
-    return ladder_bound(summed(scaled(step["double"], steps * m),
-                               scaled(step["add"], pop)),
+    lane = summed(scaled(POINT_DOUBLE, steps), scaled(POINT_ADD, busiest))
+    return ladder_bound(summed(scaled(POINT_DOUBLE, steps * m),
+                               scaled(POINT_ADD, pop)),
                         nbytes, scaled(lane, 1 / g), -(-m * g // 32))
 
 
-def fixed_walk_bound(mixes: dict, bits: np.ndarray, nbytes: int,
-                     layout: dict) -> dict:
+def fixed_walk_bound(bits: np.ndarray, nbytes: int, layout: dict) -> dict:
     """B3b's bound for `bits` ([m, words] packed) and `nbytes`: one add a
-    set bit (ladder_step_counts), and the occupancy bound of the source's
-    layout (one lane a block of 4 kWalkGroup threads, ceil(4 G / 32) warps
-    a lane), each thread doing 1/(4 G) of its lane's adds."""
-    step = ladder_step_counts(mixes)
+    set bit (POINT_ADD), and the occupancy bound of the source's layout
+    (one lane a block of 4 kWalkGroup threads, ceil(4 G / 32) warps a
+    lane), each thread doing 1/(4 G) of its lane's adds."""
     threads = 4 * layout["kWalkGroup"]
     per_lane = np.unpackbits(bits.view(np.uint8), axis=1).sum(axis=1)
-    return ladder_bound(scaled(step["add"], int(per_lane.sum())), nbytes,
-                        scaled(step["add"], int(per_lane.max()) / threads),
+    return ladder_bound(scaled(POINT_ADD, int(per_lane.sum())), nbytes,
+                        scaled(POINT_ADD, int(per_lane.max()) / threads),
                         len(bits) * -(-threads // 32))
 
 
-def sass_mix(lib, kernel: str):
-    """{opcode: count} of `kernel`'s SASS in the built library, read with
-    the toolkit's cuobjdump, or why it could not be read."""
-    import re
+def ptxas_of(report: dict, kernel: str) -> dict:
+    """ptxas's report of `kernel` over its template instances (every entry
+    function whose name holds it): the most registers and spill bytes of
+    any, and each instance's own under `instances`."""
+    found = {name: r for name, r in report.items() if kernel in name}
+    if not found:
+        return {}
+    worst = {key: max(r.get(key, 0) for r in found.values())
+             for key in ("registers", "spill_stores", "spill_loads")}
+    return {**worst, "instances": found}
 
-    from biscotti_tpu_torch import _build
 
-    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    if not os.path.isfile(tool):
-        return "not measured: no cuobjdump beside nvcc"
-    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                         text=True, timeout=120).stdout
-    mix, inside = {}, False
-    for line in out.splitlines():
-        if "Function :" in line:
-            inside = kernel in line
-            continue
-        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
-                      r"([A-Z][A-Z0-9_.]*)", line)
-        if inside and m:
-            mix[m.group(1)] = mix.get(m.group(1), 0) + 1
-    return dict(sorted(mix.items(), key=lambda kv: -kv[1]))
+def point_add_bound(n: int, nbytes: int, layout: dict) -> dict:
+    """B3d's bound for n pairs: one add a pair (POINT_ADD), and the
+    occupancy bound of the source's layout (kAddGroup threads a pair,
+    ceil(n G / 32) warps), each thread doing 1/G of its add."""
+    g = layout["kAddGroup"]
+    return ladder_bound(scaled(POINT_ADD, n), nbytes, scaled(POINT_ADD, 1 / g),
+                        -(-n * g // 32))
+
+
+def tree_bound(rows: int, cols: int, nbytes: int, layout: dict) -> dict:
+    """B3d's bound for the column sums of a [rows, cols] batch: (rows - 1)
+    adds a column (POINT_ADD), and the occupancy bound of
+    `cuda_ladder.tree_plan`'s launches summed (each launch's warps, its
+    busiest group making its class's adds and one a level among the
+    groups: a column of r members on q = min(kTreeGroups, r / 2) groups
+    takes r / q - 1 + log2 q adds there, 1/G of each a thread)."""
+    from biscotti_tpu_torch.crypto.kernels.cuda_ladder import tree_plan
+
+    g, groups = layout["kAddGroup"], layout["kTreeGroups"]
+    plan = tree_plan(rows, cols, groups)
+    out = ladder_bound(scaled(POINT_ADD, (rows - 1) * cols), nbytes)
+    occupancy, per_sched = 0.0, 0
+    for r, c in plan:
+        q = max(1, min(groups, r // 2))
+        blocks = -(-c // (groups // q))
+        adds = r // q - 1 + (q.bit_length() - 1)
+        one = ladder_bound(POINT_ADD, 0, scaled(POINT_ADD, adds / g),
+                           blocks * groups * g // 32)
+        occupancy += one["occupancy_bound_ms"]
+        per_sched = max(per_sched, one["warps_per_scheduler"])
+    out["occupancy_bound_ms"] = occupancy
+    out["warps_per_scheduler"] = per_sched
+    out["launches"] = len(plan)
+    return out
+
+
+def grid_cell_bound(cells: int, points: bool) -> dict:
+    """B3c's bound for `cells` wire cells: each cell's verdict
+    (CELL_VERDICT) and, with `points`, its point (CELL_POINT), against its
+    32 limbs read and its verdict (and its 64-limb point) written once;
+    and the occupancy bound of one thread a cell (ceil(cells / 32)
+    warps)."""
+    cell = summed(CELL_VERDICT, CELL_POINT) if points else CELL_VERDICT
+    nbytes = cells * (2 * 16 * 8 + 1 + (4 * 16 * 8 if points else 0))
+    return ladder_bound(scaled(cell, cells), nbytes, cell, -(-cells // 32))
+
+
+def grid_sum_bound(w: int, n: int, valid: int) -> dict:
+    """`grid_sum`'s bound at [w, n] with `valid` valid grids: every cell's
+    verdict (CELL_VERDICT), the valid grids' points (CELL_POINT) and
+    valid - 1 adds a column (an invalid grid's identity needs none),
+    against the cells read once, the grid verdicts and the n sums written
+    once."""
+    return ladder_bound(summed(scaled(CELL_VERDICT, w * n),
+                               scaled(CELL_POINT, valid * n),
+                               scaled(POINT_ADD, max(valid - 1, 0) * n)),
+                        w * n * 2 * 16 * 8 + w + n * 4 * 16 * 8)
+
+
+def resident_warps(registers, threads: int, smem: int):
+    """Warps a scheduler that an SM holds of a kernel with `registers` a
+    thread, `threads` a block and `smem` bytes of shared memory a block:
+    65,536 registers (allocated 8 a thread at a time, a warp's at once),
+    228 KB of shared memory (1 KB a block kept by the card), at most 32
+    blocks and 64 warps an SM, four schedulers. None if registers are not
+    known."""
+    if not isinstance(registers, int):
+        return None
+    warps = -(-threads // 32)
+    regs = -(-registers // 8) * 8
+    blocks = min(65536 // (regs * 32 * warps), 32, 64 // warps,
+                 (228 * 1024) // (smem + 1024) if smem else 32)
+    return blocks * warps / 4
 
 
 def krum_scores_fp64(x, num_adversaries: int):
@@ -746,39 +831,41 @@ def ladder_rows(dev, ladder: dict, wave1, gam, acc, summed1, summed2,
     bit; each timed through its wrapper, alone (the C interface on outputs
     allocated once) and plain (CUDA events, median of 20; the plain
     ladders, ~1e5 launches a call, median of 3), beside its bound.
-    `ladder` is the build phase's SASS mixes, ptxas reports (registers,
-    spills) and the source's layout constants. B3a's and B3b's bounds
-    count the frozen work of a double and an add (ladder_step_counts),
-    their occupancy bounds the layout's warps. Launches made here are
-    comparisons, not main-path launches. Returns {id: [rows]}."""
+    `ladder` is the build phase's ptxas reports (registers, spills) and
+    the source's layout constants. Every bound counts the field
+    arithmetic's work (POINT_ADD, POINT_DOUBLE, CELL_VERDICT, CELL_POINT),
+    the occupancy bounds the layout's warps. B3c's first row is the
+    instance the main path runs (`grid_sum`'s verdicts alone), its second
+    the one with the points (`grid_validate_points`). Launches made here
+    are comparisons, not main-path launches. Returns {id: [rows]}."""
     import torch
 
     from biscotti_tpu_torch import _build
     from biscotti_tpu_torch.crypto.kernels import cuda_ladder as cl
+    from biscotti_tpu_torch.crypto.kernels import group as gp
     from biscotti_tpu_torch.crypto.kernels import primitives as prim
-
     lib = _build.load("ed25519_ladder")
     stream = torch.cuda.current_stream().cuda_stream
     flag = torch.zeros(1, dtype=torch.int32, device=dev)
-    add = ladder_step_counts(ladder["sass"])["add"]
     rows: dict = {}
 
     def on(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
     def record(kid, shape, got, want, wrapper, alone, plain, bound,
-               plain_reps=20):
+               plain_reps=20, report=None):
         torch.cuda.synchronize()
         mism = sum(int((g != w).sum()) for g, w in zip(got, want))
         err = max(float((g.long() - w.long()).abs().max()) for g, w
                   in zip(got, want))
+        if report is None:
+            report = ladder["ptxas"][kid]
         r = {"kernel": kid, "shape": shape, "mismatches": mism,
              "max_abs_err": err, "ms": time_ms(wrapper),
-             "kernel_only_ms": time_ms(alone) if alone else
-             "not measured: one launch a level",
+             "kernel_only_ms": time_ms(alone),
              "plain_ms": time_ms(plain, reps=plain_reps),
-             "registers": ladder["ptxas"][kid].get("registers"),
-             "spill_stores": ladder["ptxas"][kid].get("spill_stores"),
+             "registers": report.get("registers"),
+             "spill_stores": report.get("spill_stores"),
              **bound}
         if int(flag):
             raise AssertionError(f"{kid} flagged a limb of its own inputs")
@@ -801,8 +888,8 @@ def ladder_rows(dev, ladder: dict, wave1, gam, acc, summed1, summed2,
                                           pts.data_ptr(), out.data_ptr(),
                                           flag.data_ptr(), m, stream),
            lambda: cl.msm_ladder_plain(bits, pts),
-           {**msm_ladder_bound(ladder["sass"], bits_np,
-                               bits.nbytes + 2 * pts.nbytes, ladder["layout"]),
+           {**msm_ladder_bound(bits_np, bits.nbytes + 2 * pts.nbytes,
+                               ladder["layout"]),
             "threads_a_lane": ladder["layout"]["kMsmGroup"],
             "threads_a_block": ladder["layout"]["kMsmThreads"]},
            plain_reps=3)
@@ -823,32 +910,54 @@ def ladder_rows(dev, ladder: dict, wave1, gam, acc, summed1, summed2,
                                               table.data_ptr(), out.data_ptr(),
                                               flag.data_ptr(), m, stream),
                lambda: cl.fixed_walk_plain(bits, table),
-               {**fixed_walk_bound(ladder["sass"], bits_np,
+               {**fixed_walk_bound(bits_np,
                                    bits.nbytes + table.nbytes + out.nbytes,
                                    ladder["layout"]),
                 "threads_a_lane": 4 * ladder["layout"]["kWalkGroup"],
                 "threads_a_block": 4 * ladder["layout"]["kWalkGroup"]},
                plain_reps=3)
 
-    # B3c: the first wave's cells, two bad grids among them
+    # B3c: the first wave's cells, two bad grids among them; the verdicts
+    # alone (grid_sum's instance), then with the points
     xy = on(prim.wave_cells(wave1)).long()
-    cells = xy.numel() // 32
-    ok = torch.empty(xy.shape[:2], dtype=torch.bool, device=dev)
-    gpts = torch.empty(xy.shape[:2] + (4, 16), dtype=torch.int64, device=dev)
-    record("B3c", list(xy.shape[:2]), cl.grid_validate_points(xy),
-           cl.grid_points_plain(xy),
-           lambda: cl.grid_validate_points(xy),
-           lambda: lib.ed25519_grid_points(xy.data_ptr(), ok.data_ptr(),
-                                           gpts.data_ptr(), flag.data_ptr(),
-                                           cells, stream),
-           lambda: cl.grid_points_plain(xy),
-           ladder_bound(scaled(pipe_counts(ladder["sass"]["B3c"]), cells),
-                        cells * (2 * 16 * 8 + 1 + 4 * 16 * 8)))
+    w, ncol = xy.shape[:2]
+    cells = w * ncol
+    ok = torch.empty((w, ncol), dtype=torch.bool, device=dev)
+    gpts = torch.empty((w, ncol, 4, 16), dtype=torch.int64, device=dev)
+    lay = ladder["layout"]
+    for points in (False, True):
+        report = ladder["ptxas"]["B3c"].get("instances", {})
+        report = next((r for name, r in report.items()
+                       if f"ILb{int(points)}E" in name), {})
+        if points:
+            got, want = (cl.grid_validate_points(xy),
+                         cl.grid_points_plain(xy))
+            wrapped = lambda: cl.grid_validate_points(xy)  # noqa: E731
+            plain = lambda: cl.grid_points_plain(xy)  # noqa: E731
+        else:
+            got, want = (cl.grid_verdicts(xy),), (cl.grid_verdicts_plain(xy),)
+            wrapped = lambda: cl.grid_verdicts(xy)  # noqa: E731
+            plain = lambda: cl.grid_verdicts_plain(xy)  # noqa: E731
+        record("B3c", [w, ncol] + (["points"] if points else []), got, want,
+               wrapped,
+               lambda p=points: lib.ed25519_grid_points(
+                   xy.data_ptr(), ok.data_ptr(),
+                   gpts.data_ptr() if p else None, flag.data_ptr(), cells,
+                   stream),
+               plain,
+               {**grid_cell_bound(cells, points),
+                "threads_a_cell": 1, "threads_a_block": lay["kCellThreads"],
+                "resident_warps_a_scheduler": resident_warps(
+                    report.get("registers"), lay["kCellThreads"],
+                    lay["kCellThreads"] * (32 + 1) * 16 if points else 0)},
+               report=report)
 
     # B3d: ext_add's pairs, then the msm's whole tree
+    add_smem = 1344  # sizeof(AddSmem), one a group
     s1, s2 = on(summed1), on(summed2)
     n = len(s1)
     out = torch.empty_like(s1)
+    g = lay["kAddGroup"]
     record("B3d", [n, 4, 16], (cl.point_add(s1, s2),),
            (cl.point_add_plain(s1, s2),),
            lambda: cl.point_add(s1, s2),
@@ -856,17 +965,54 @@ def ladder_rows(dev, ladder: dict, wave1, gam, acc, summed1, summed2,
                                          out.data_ptr(), flag.data_ptr(), n,
                                          stream),
            lambda: cl.point_add_plain(s1, s2),
-           ladder_bound(scaled(add, n), 3 * s1.nbytes))
+           {**point_add_bound(n, 3 * s1.nbytes, lay),
+            "threads_a_lane": g, "threads_a_block": lay["kAddThreads"],
+            "resident_warps_a_scheduler": resident_warps(
+                ladder["ptxas"]["B3d"].get("registers"), lay["kAddThreads"],
+                lay["kAddThreads"] // g * add_smem)})
 
-    def plain_tree(t):
-        while len(t) > 1:
-            t = cl.point_add_plain(t[:len(t) // 2], t[len(t) // 2:])
-        return t[0]
+    groups = lib.ed25519_tree_groups()
+
+    def tree_alone(src, rows, cols, grid_ok=None):
+        return cl.tree_launches(lib, src, rows, cols, flag, stream, grid_ok)
 
     m = len(lanes)
-    record("B3d", ["tree", m], (cl.tree_sum(lanes),), (plain_tree(lanes),),
-           lambda: cl.tree_sum(lanes), None, lambda: plain_tree(lanes),
-           ladder_bound(scaled(add, m - 1), 3 * (m - 1) * 4 * 16 * 8))
+    tree_threads = groups * g
+    record("B3d", ["tree", m], (cl.tree_sum(lanes),),
+           (cl.column_tree_plain(lanes),),
+           lambda: cl.tree_sum(lanes), lambda: tree_alone(lanes, m, 1),
+           lambda: cl.column_tree_plain(lanes),
+           {**tree_bound(m, 1, (m + 1) * 4 * 16 * 8, lay),
+            "threads_a_lane": g, "threads_a_block": tree_threads,
+            "resident_warps_a_scheduler": resident_warps(
+                ladder["ptxas"]["B3d"].get("registers"), tree_threads,
+                groups * add_smem)}, plain_reps=3)
+
+    # grid_sum whole on the same wave: B3c's verdicts, the mask, the tree
+    # (one launch at 64 waves) against the plain path on the card
+    def plain_grid_sum():
+        pok, ppts = cl.grid_points_plain(xy)
+        pgrid = pok.all(dim=1)
+        ppts[~pgrid] = gp.identity_on((), dev)
+        return pgrid, cl.column_tree_plain(ppts)
+
+    before = cl.point_add.launches
+    got = cl.grid_sum(xy)
+    grid_tree_launches = cl.point_add.launches - before
+    grid_ok = got[0]
+    record("grid_sum", [w, ncol], got, plain_grid_sum(),
+           lambda: cl.grid_sum(xy),
+           lambda: (lib.ed25519_grid_points(xy.data_ptr(), ok.data_ptr(),
+                                            None, flag.data_ptr(), cells,
+                                            stream),
+                    tree_alone(xy, w, ncol, ok.all(dim=1))),
+           plain_grid_sum,
+           {**grid_sum_bound(w, ncol, int(grid_ok.sum())),
+            "tree_launches": grid_tree_launches,
+            "grid_ok": grid_ok.tolist()}, plain_reps=3, report={})
+    if grid_tree_launches != 1:
+        raise AssertionError(f"grid_sum's tree took {grid_tree_launches} B3d "
+                             f"launches over {w} waves, not one")
     return rows
 
 
@@ -925,7 +1071,7 @@ def crypto_phase(dev, grid: np.ndarray, a, b, ladder: dict) -> dict:
     gam_bad[17] = (gam_bad[17] + 1) % ed.Q
     perturbed = ed.point_equal(lhs, prim.msm(gam_bad, acc))
     b3_launches = cl.launches()  # the folds, the settle, the perturbed one
-    # one settle-width msm: one ladder launch and one add a tree level
+    # one settle-width msm: one ladder launch and the tree's two
     cl.reset_launches()
     prim.msm(gam, acc)
     msm_launches = cl.launches()
@@ -1013,12 +1159,11 @@ def crypto_phase(dev, grid: np.ndarray, a, b, ladder: dict) -> dict:
                              "intake, not once per fold")
     if not settled or perturbed:
         raise AssertionError("the settle does not hold the RLC equation")
-    lanes = prim._pow2(n, prim.MSM_MIN_LANES)
-    if msm_launches != {"msm_ladder": 1, "fixed_walk": 0,
-                        "grid_validate_points": 0,
-                        "point_add": lanes.bit_length() - 1}:
+    if {k: v for k, v in msm_launches.items() if k != "point_add"} \
+            != {"msm_ladder": 1, "fixed_walk": 0, "grid_validate_points": 0} \
+            or not 1 <= msm_launches["point_add"] <= 2:
         raise AssertionError(f"a settle-width msm launched {msm_launches}, "
-                             "not B3a once and B3d once a tree level")
+                             "not B3a once and B3d at most twice")
     if min(b3_launches.values()) < 1:
         raise AssertionError(f"the intake did not launch every B3 kernel: "
                              f"{b3_launches}")
@@ -2658,8 +2803,9 @@ def ladder_line(crypto: dict, secagg: dict, live: dict, drivers: dict):
     phase (the crypto intake, secagg's armed intakes, live (b)'s rounds
     beyond the peers' prewarms, drivers (c)'s msm), and the times and
     bound at the shape the settle gives each (B3a's 8,192 lanes, B3b's
-    Pedersen comb at 1 x 512, B3c's 64 x 7,850 cells, B3d's ext_add of
-    7,850 pairs), the other shapes under `at`."""
+    Pedersen comb at 1 x 512, B3c's verdicts of 64 x 7,850 cells, the
+    instance `grid_sum` runs, B3d's ext_add of 7,850 pairs), the other
+    shapes under `at` (B3c's with the points among them)."""
     rows = []
     for kid, (_, wrapper, replaces) in LADDER.items():
         by_phase = {"crypto": crypto["b3_launches"][wrapper],
@@ -2683,7 +2829,8 @@ def ladder_line(crypto: dict, secagg: dict, live: dict, drivers: dict):
             "spill_stores": main["spill_stores"],
             "at": [{k: r.get(k) for k in ("shape", "ms", "kernel_only_ms",
                                            "plain_ms", "bound_ms", "bound_by",
-                                           "occupancy_bound_ms")}
+                                           "occupancy_bound_ms", "registers",
+                                           "spill_stores")}
                    for r in timed if r is not main]})
     return rows
 
@@ -2720,13 +2867,12 @@ def main() -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(_build.KERNELS)) as pool:  # one nvcc each
         logs = dict(zip(_build.KERNELS, pool.map(_build.build, _build.KERNELS)))
-    oncurve_sass = sass_mix(_build.library_path("oncurve"), "oncurve_kernel")
-    krum_sass = sass_mix(_build.library_path("krum_scores"), "krum_gram_kernel")
+    oncurve_sass = _build.sass_mix(_build.library_path("oncurve"),
+                                   "oncurve_kernel")
+    krum_sass = _build.sass_mix(_build.library_path("krum_scores"),
+                                "krum_gram_kernel")
     report = _build.ptxas_report(logs["ed25519_ladder"])
-    ladder = {"sass": {k: sass_mix(_build.library_path("ed25519_ladder"), fn)
-                       for k, (fn, _, _) in LADDER.items()},
-              "ptxas": {k: next((r for name, r in report.items()
-                                 if fn in name), {})
+    ladder = {"ptxas": {k: ptxas_of(report, fn)
                         for k, (fn, _, _) in LADDER.items()},
               "layout": layout(_build.source("ed25519_ladder").read_text())}
     emit("build", seconds=time.perf_counter() - t0,
@@ -2735,17 +2881,14 @@ def main() -> int:
          ptxas={k: [l.strip() for l in log.splitlines()
                     if "registers" in l or "spill" in l]
                 for k, log in logs.items()},
-         ladder_sass=ladder["sass"], ladder_ptxas=ladder["ptxas"],
-         ladder_layout=ladder["layout"],
-         ladder_pipes={k: pipe_counts(mix)
-                       for k, mix in ladder["sass"].items()},
+         ladder_ptxas=ladder["ptxas"], ladder_layout=ladder["layout"],
          oncurve_sass=oncurve_sass, krum_gram_sass=krum_sass,
          krum_gram_pipes={op: sum(c for o, c in krum_sass.items()
                                   if o.split(".")[0] == op)
                           for op in ("FFMA", "HMMA")}
          if isinstance(krum_sass, dict) else krum_sass)
-    for kid in ("B3a", "B3b"):  # the grouped ladders keep every value in
-        if ladder["ptxas"][kid].get("spill_stores") != 0:  # registers
+    for kid in LADDER:  # every instance of every ladder kernel keeps its
+        if ladder["ptxas"][kid].get("spill_stores") != 0:  # values in
             raise AssertionError(f"{kid} spills: {ladder['ptxas'][kid]}")
 
     # 3. kernel vs plain --------------------------------------------------

@@ -455,6 +455,7 @@ def test_plain_grid_sum_equals_reference_program(case):
     assert _same(grid_ok, want_ok) and _same(summed, want_sum)
     ok, _ = cl.grid_points_plain(_t(xy))  # each cell against the oracle
     assert np.array_equal(ok.numpy(), prim._cell_canonical_mask(xy)[1])
+    assert torch.equal(cl.grid_verdicts(_t(xy)), ok)  # grid_sum's B3c
 
 
 def test_plain_point_add_equals_reference_program():
@@ -464,6 +465,61 @@ def test_plain_point_add_equals_reference_program():
     for a, b in ((p, q), (q, p), (q, q)):
         assert _same(cl.point_add(_t(a), _t(b)), ref(a, b))
     assert _same(cl.tree_sum(_t(q)), rgp.tree_sum(jnp.asarray(q)))
+
+
+@pytest.mark.parametrize("w,n", [(4, 3), (8, 5), (64, 3)])
+def test_plain_column_tree_equals_reference_grid_program(w, n):
+    """B3d's grid tree on the CPU: each column of the masked [w, n, 4, 16]
+    points summed over the waves, against the reference's ("grid", w, n)
+    program and gp.tree_sum of each column (wire_grids: grids 1-3
+    invalid, grid 4 the edge cells where w > 4)."""
+    xy = wire_grids(w, n, seed=w + n)
+    ref = _ref_program(("grid", w, n), lambda: rprim._build_grid(w, n))
+    want_ok, want_sum = ref(xy)
+    ok, pts = cl.grid_points_plain(_t(xy))
+    grid_ok = ok.all(dim=1)
+    pts[~grid_ok] = gp.identity_on((), pts.device)
+    assert _same(grid_ok, want_ok)
+    got = cl.column_tree_plain(pts)
+    assert _same(got, want_sum) and _same(cl.column_sum(pts), want_sum)
+    assert _same(cl.grid_sum(_t(xy))[1], want_sum)
+    for c in range(n):
+        assert _same(got[c], rgp.tree_sum(jnp.asarray(pts[:, c].numpy())))
+
+
+@pytest.mark.parametrize("m,groups", [(256, 64), (512, 64), (8192, 64),
+                                      (64, 2), (32, 4), (16, 8)])
+def test_tree_plan_is_gp_tree_sums_pairing(m, groups):
+    """Launch 1 of a split tree sums each class of members congruent mod
+    the partials' count, launch 2 the partials: the same bits as
+    gp.tree_sum, in at most two launches whatever the width."""
+    plan = cl.tree_plan(m, 1, groups)
+    assert len(plan) == (1 if m <= 2 * groups else 2)
+    assert all(r <= 2 * groups for r, _ in plan[1:])
+    rng = np.random.default_rng(m + groups)
+    pts = _t(rng.integers(-(1 << 18), 1 << 18, (m, 4, 16)))
+    src = pts[:, None]
+    for r, c in plan:
+        src = cl.column_tree_plain(src.reshape(r, c, 4, 16))
+    assert torch.equal(src[0], gp.tree_sum(pts))
+    if m <= 512:  # the CPU path's plain tree gives the same bits
+        assert torch.equal(cl.tree_sum(pts), src[0])
+
+
+def test_tree_plan_launches():
+    from biscotti_tpu_torch.tools.ladder_ab import layout
+
+    groups = layout(_build_source_text())["kTreeGroups"]
+    for k in range(0, 21):
+        assert len(cl.tree_plan(1 << k, 1, groups)) <= 2
+    assert len(cl.tree_plan(8192, 1, groups)) == 2
+    assert cl.tree_plan(64, 7850, groups) == [(64, 7850)]  # the wave: one
+
+
+def _build_source_text():
+    from biscotti_tpu_torch import _build
+
+    return _build.source("ed25519_ladder").read_text()
 
 
 def test_pack_bits_round_trips():
@@ -481,11 +537,13 @@ def _wrapper_call(name, pts, bits, table, xy):
             "fixed_walk": lambda: cl.fixed_walk(bits[:2], table),
             "point_add": lambda: cl.point_add(pts, pts.flip(0)),
             "tree_sum": lambda: cl.tree_sum(pts[:4]),
-            "grid_validate_points": lambda: cl.grid_validate_points(xy)}[name]
+            "grid_validate_points": lambda: cl.grid_validate_points(xy),
+            "grid_verdicts": lambda: cl.grid_verdicts(xy)}[name]
 
 
 @pytest.mark.parametrize("name", ["msm_ladder", "fixed_walk", "point_add",
-                                  "tree_sum", "grid_validate_points"])
+                                  "tree_sum", "grid_validate_points",
+                                  "grid_verdicts"])
 def test_ladder_wrappers_refuse_limbs_outside_their_range(name):
     """Points in (−2^19, 2^19), wire cells in [0, 2^16), on the CPU as the
     kernel flags them; the edges just inside are computed."""
@@ -493,7 +551,7 @@ def test_ladder_wrappers_refuse_limbs_outside_their_range(name):
     bits = _t(cl.pack_bits(np.ones((8, 32), np.uint8)))
     table = _t(prim._fixed_table("B")[:32].copy())  # not the cache
     xy = _t(wire_grids(4, 3, seed=2))
-    grid = name == "grid_validate_points"
+    grid = name in ("grid_validate_points", "grid_verdicts")
     inside = (0, (1 << 16) - 1) if grid else (-1, (1 << 19) - 1)
     outside = (-1, 1 << 16) if grid else (-(1 << 19), 1 << 19)
     target = xy if grid else (table if name == "fixed_walk" else pts)

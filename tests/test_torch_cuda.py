@@ -384,6 +384,9 @@ def test_grid_points_kernel_matches_plain(dev, w, n):
     assert torch.equal(ok, want_ok) and torch.equal(pts, want_pts)
     grid_ok = ok.all(dim=1).tolist()
     assert grid_ok[:4] == [True, False, False, False]
+    before = cl.grid_validate_points.launches
+    assert torch.equal(cl.grid_verdicts(xy), want_ok)  # grid_sum's instance
+    assert cl.grid_validate_points.launches == before + 1
     grid_ok_sum, summed = cl.grid_sum(xy)
     assert grid_ok_sum.tolist() == grid_ok
     assert torch.equal(summed.cpu(), cl.grid_sum(xy.cpu())[1])
@@ -401,9 +404,66 @@ def test_point_add_kernel_and_tree_sum_match_plain(dev):
         want = cl.point_add_plain(want[:len(want) // 2], want[len(want) // 2:])
     before = cl.point_add.launches
     total = cl.tree_sum(lanes)
-    assert cl.point_add.launches == before + 13  # log2(8192) levels
+    assert cl.point_add.launches <= before + 2  # 13 levels in two launches
     assert torch.equal(total, want[0])
     assert torch.equal(total.cpu(), cl.tree_sum(lanes.cpu()))
+
+
+# a tree a block reaches (one launch), and ones split in two
+@pytest.mark.parametrize("m", [2, 32, 256, 1024, 8192])
+def test_tree_sum_kernel_matches_plain_in_at_most_two_launches(dev, m):
+    _, pts = _msm_lanes(m, dev)
+    before = cl.point_add.launches
+    total = cl.tree_sum(pts)
+    torch.cuda.synchronize()
+    launches = cl.point_add.launches - before
+    from biscotti_tpu_torch import _build
+
+    groups = _build.load("ed25519_ladder").ed25519_tree_groups()
+    assert launches == len(cl.tree_plan(m, 1, groups)) <= 2
+    assert torch.equal(total, gp.tree_sum(pts))
+    assert torch.equal(cl.tree_sum(pts), total)  # two calls, same bits
+
+
+@pytest.mark.parametrize("invalid", ["first", "last", "all"])
+def test_grid_sum_kernel_with_invalid_grids(dev, invalid):
+    xy = _dev_t(wire_grids(64, 7850, seed=9), dev)  # grids 1-4 invalid
+    valid = xy[:1].expand(64, -1, -1, -1)
+    if invalid == "first":
+        xy = torch.cat([xy[1:2], valid[1:]])
+    elif invalid == "last":
+        xy = torch.cat([valid[1:], xy[1:2]])
+    else:
+        xy = xy[1:5].repeat(16, 1, 1, 1)
+    xy = xy.contiguous()
+    before = (cl.grid_validate_points.launches, cl.point_add.launches)
+    grid_ok, summed = cl.grid_sum(xy)
+    torch.cuda.synchronize()
+    assert (cl.grid_validate_points.launches - before[0],
+            cl.point_add.launches - before[1]) == (1, 1)  # B3c, one tree
+    want = {"first": [False] + [True] * 63, "last": [True] * 63 + [False],
+            "all": [False] * 64}[invalid]
+    assert grid_ok.tolist() == want
+    want_ok, want_sum = cl.grid_sum(xy.cpu())
+    assert torch.equal(grid_ok.cpu(), want_ok)
+    assert torch.equal(summed.cpu(), want_sum)
+
+
+def test_point_add_at_the_loose_limb_edges(dev):
+    edge = (1 << 19) - 1
+    _, a = _msm_lanes(7850, dev)
+    b = a.flip(0).contiguous()
+    a = a.clone()
+    for lane, row, limb, sign in ((0, 0, 0, 1), (7, 1, 15, -1),
+                                  (1000, 2, 7, 1), (7849, 3, 0, -1),
+                                  (4096, 0, 15, -1)):
+        a[lane, row, limb] = sign * edge
+        b[lane, 3 - row, 15 - limb] = -sign * edge
+    got = cl.point_add(a, b)
+    assert torch.equal(got, cl.point_add_plain(a, b))
+    assert torch.equal(cl.point_add(a, b), got)
+    pts = torch.cat([a, b])[:8192]
+    assert torch.equal(cl.tree_sum(pts), gp.tree_sum(pts))
 
 
 def test_ladder_kernels_are_deterministic_and_refuse_what_they_do_not_take(dev):
@@ -442,6 +502,10 @@ def test_ladder_kernels_are_deterministic_and_refuse_what_they_do_not_take(dev):
         cl.point_add(pts.transpose(0, 1).contiguous().transpose(0, 1), pts)
     with pytest.raises(ValueError):
         cl.tree_sum(pts[:3])
+    with pytest.raises(ValueError, match="contiguous"):  # every other row
+        cl.column_sum(pts[:8].reshape(2, 4, 4, 16).transpose(0, 1))
+    with pytest.raises(ValueError, match="contiguous"):
+        cl.grid_sum(xy[:4].transpose(0, 1))
 
 
 # --------------------------------- slice 3: CNNs and defenses on the card

@@ -16,8 +16,9 @@ port's multi-device dry run (`biscotti_tpu_torch/multichip.py`).
     than the controller group's timeout; dispatch and close refuse to
     run off rank 0, serve on it;
   * rank 0 raising mid-run releases the follower at once;
-  * `dryrun_multichip(2, device="cpu")`, and `mesh_rounds`' sharded
-    rounds at 1 and 2 ranks held to each other.
+  * `dryrun_multichip(2, device="cpu")`, its block check on chains that
+    agree with the trained rounds and chains that cannot, and
+    `mesh_rounds`' sharded rounds at 1 and 2 ranks held to each other.
 
 Ports are 17800-17899, which no other test file uses."""
 
@@ -227,6 +228,39 @@ def test_dryrun_multichip_on_two_cpu_ranks():
     assert line.startswith("dryrun_multichip(2): ok — mask 2/4")
     assert "sharded secure-agg ok at d=7850/164266" in line
     assert "8 peers, 2v/2m committee" in line
+
+
+def _dump(ndeltas):
+    return "\n".join(["iter=-1 ndeltas=0 hash=0 prev=0 |w|=0"] + [
+        f"iter={it} ndeltas={n} hash={it} prev=0 |w|=1"
+        for it, n in enumerate(ndeltas)])
+
+
+# a one-rank dry run on the CPU: round 4 trained two workers, the
+# verifiers refused one, and its decline closed the leader's intake first
+_TRAINED = {0: 2, 1: 1, 2: 1, 3: 1, 4: 2, 5: 1, 6: 1, 7: 2}
+
+
+@pytest.mark.parametrize("ndeltas, trained, refused, minted", [
+    ([1, 1, 1, 1, 0, 1, 1, 1], _TRAINED, 3, 7),
+    ([1, 1, 1, 1, 1, 1, 1, 1], _TRAINED, 3, 8),
+    ([1, 0, 1, 1, 0, 1, 0, 0], {0: 1, 2: 1, 3: 1, 5: 2}, 1, 4),
+    ([1, 1, 1, 1, 0, 1, 1, 1], _TRAINED, 0, None),  # no refusal
+    ([1, 0, 1, 1, 1, 1, 1, 1], _TRAINED, 3, None),  # one worker, empty
+    ([1, 1, 1, 1, 1, 1, 1, 1], {i: 1 for i in range(7)}, 0, None),
+    ([0] * 8, {}, 0, None),  # nothing minted
+], ids=["refused-first", "all-real", "untrained-empty", "no-refusal",
+        "lone-worker-empty", "untrained-real", "none"])
+def test_cluster_blocks_agree_with_the_trained_rounds(ndeltas, trained,
+                                                      refused, minted):
+    from biscotti_tpu_torch.multichip import check_cluster_blocks
+
+    if minted is None:
+        with pytest.raises(AssertionError, match="device cluster"):
+            check_cluster_blocks(_dump(ndeltas), trained, refused)
+    else:
+        assert check_cluster_blocks(_dump(ndeltas), trained,
+                                    refused) == minted
 
 
 def test_mesh_rounds_agree_across_mesh_sizes():
