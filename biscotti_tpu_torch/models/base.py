@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from dataclasses import dataclass
 from typing import Callable, Dict, Tuple
 
@@ -49,23 +50,39 @@ def unravel(leaves: Tuple[Leaf, ...], flat_w: torch.Tensor) -> Dict[str, torch.T
     return out
 
 
+# fp32_math's flags are process-wide and the live peer enters it from
+# several worker threads at once (the speculative step, the serial step,
+# the test error): the first thread in saves and clears them, the last one
+# out restores them, so no thread's step runs on flags another thread
+# restored (ROADMAP C9).
+_FP32_LOCK = threading.Lock()
+_FP32_DEPTH = 0
+_FP32_SAVED = (False, False)
+
+
 @contextlib.contextmanager
 def fp32_math():
     """A context in which float32 math stays float32 on the card: TF32 off
     for matmuls, which is where the CNNs' convolutions run (models/zoo.py),
     and for cuDNN. Entry points wrap whole steps and evaluations in it, so
     the backward passes that `torch.func.grad` runs are covered too; the
-    caller's settings come back on exit."""
-    matmul = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    caller's settings come back once the last thread inside has left."""
+    global _FP32_DEPTH, _FP32_SAVED
+    with _FP32_LOCK:
+        if _FP32_DEPTH == 0:
+            _FP32_SAVED = (torch.backends.cuda.matmul.allow_tf32,
+                           torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _FP32_DEPTH += 1
     try:
-        with torch.backends.cudnn.flags(
-                enabled=True, benchmark=torch.backends.cudnn.benchmark,
-                deterministic=torch.backends.cudnn.deterministic,
-                allow_tf32=False):
-            yield
+        yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = matmul
+        with _FP32_LOCK:
+            _FP32_DEPTH -= 1
+            if _FP32_DEPTH == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _FP32_SAVED
 
 
 @dataclass(frozen=True)

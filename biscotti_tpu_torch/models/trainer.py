@@ -161,7 +161,6 @@ class Trainer:
         self._step = local_step_fn(self.model, self.mode,
                                    clip=self.cfg.grad_clip,
                                    alpha=self.cfg.logreg_alpha)
-        self._gen = torch.Generator(device=self.device)
 
     # ---- the reference's bridge API (honest.go:204-324) ----
 
@@ -185,12 +184,19 @@ class Trainer:
 
     def batch_indices(self, iteration: int) -> torch.Tensor:
         """Round `iteration`'s minibatch rows of the train shard, without
-        replacement, pure in (config seed, peer seed, iteration)."""
+        replacement, pure in (config seed, peer seed, iteration).
+
+        Each call seeds a generator of its own (ROADMAP C9): the live peer
+        runs a speculative step and the serial step of one round in two
+        worker threads at once, and a generator shared between them let
+        one thread's draw continue the stream the other had just seeded.
+        The rows are the same as those of the one shared generator."""
         self._require_full("train shard")
-        self._gen.manual_seed(stream_seed("trainer", self.cfg.seed, self.seed,
-                                          "batch", iteration))
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(stream_seed("trainer", self.cfg.seed, self.seed,
+                                    "batch", iteration))
         rows = int(self.x_train.shape[0])
-        return sample_batch(self._gen, rows, min(self.batch_size, rows), 1)[0]
+        return sample_batch(gen, rows, min(self.batch_size, rows), 1)[0]
 
     def private_fun_from_batch(self, flat_w, idx) -> np.ndarray:
         """The step on the train rows `idx`: pure in (flat_w, idx)."""

@@ -166,7 +166,27 @@ printed as one JSON line:
               live block); (b) B2's launches. Then the verifier seam: an
               unstarted card peer and a CPU peer give the same KRUM,
               MULTIKRUM, FOOLSGOLD, RONI and ENSEMBLE masks on seeded
-              12-row pools at d = 7,850 and on C2's x1e-20 rows;
+              12-row pools at d = 7,850 and on C2's x1e-20 rows. Then
+              two armed Byzantine clusters, each beside a native-plane
+              witness of the same classes and seed (the PeerAgent
+              subclasses of `byzantine_peers`): (d) 7 peers, secure
+              aggregation, noising and verification with no defense,
+              pipelined rounds with speculation and batched intake, 3
+              rounds, two of round 0's workers a CorruptSharePeer and a
+              ForgedCommitmentPeer: honest chains equal, both offenders
+              rejected, never accepted and debited, the accepted and
+              rejected ids and the stake map the witness's (on equal
+              pools, up to BYZANTINE_PAIRS pairs), speculation steps ready
+              and none failed, B2 in the folds and B3a, B3c and B3d in
+              the rounds; (e) the reference's colluding cancellation (7
+              peers, 2 miners, one round): two colluders whose share
+              offsets cancel in a miner's intake batch and a miner that
+              lies one of them out of the agreed set; every intake
+              verdict of the armed run equals the native plane's on the
+              same instances (the cancelled batch passes), the
+              aggregation-boundary re-check rejects and debits the
+              remaining colluder, the lied-out one is not accepted and
+              an honest update is;
   hive        co-hosted port peers on the card, one process, loopback
               transport, one batched SGD call a round (runtime/hive.py):
               (a) the reference's density entry at N = 100 (bench.py:452)
@@ -358,6 +378,22 @@ LEDGER_CODECS = ("raw64", "f32+zlib")
 LIVE_PEERS = 7
 LIVE_BASE_PORT = 17500
 LIVE_PAIRS = 3  # runs of (b) and its witness, until they pool alike
+# runs of (d) and its witness, until they pool alike: in (d)'s round 2 six
+# workers arrive for a pool of 5, and two of the first four pairs run on
+# the H100 pooled other workers there (ROADMAP C8)
+BYZANTINE_PAIRS = 8
+# a live cluster's round windows on the native host plane, and armed: the
+# long windows cost nothing when no deadline is reached
+LIVE_FAST = dict(update_s=20.0, block_s=60.0, krum_s=20.0, share_s=20.0,
+                 rpc_s=20.0)
+LIVE_ARMED = dict(update_s=120.0, block_s=300.0, krum_s=120.0, share_s=120.0,
+                  rpc_s=120.0)
+# the peers' counters a live row sums: the speculation plane's ledger and
+# the miners' intake verdicts
+LIVE_COUNTERS = ("speculation_ready", "speculation_hit",
+                 "speculation_discard", "speculation_error",
+                 "submission_rejected", "vss_batch_settled",
+                 "intake_preverified")
 # the hive phase: (a) the reference's density entry at N = 100 (its CLI's
 # default ports, 8000 + id), (b) 100 mnist_cnn peers, (c) N = 528, whose
 # verifier pools 526 updates, inside B1's 512..4096 window, for one round
@@ -1972,15 +2008,19 @@ def free_base(port: int, n: int) -> int:
 
 
 def live_cluster(name: str, port: int, timeouts: dict, peers: int,
-                 **kw) -> dict:
+                 classes: dict | None = None, **kw) -> dict:
     """`peers` port PeerAgents on the card (device None: the GPU) in one
     event loop over loopback TCP, run to the end; the cluster's row, with
-    the chain-equality oracle checked. Round wall times are the gaps
-    between peer 0's per-round log stamps, the first from the run's
-    start. `verdicts` lists each verifier decision as [round, pool,
-    accepted]; under KRUM with a pool of 5 or more, Krum must have
+    the chain-equality oracle checked over the honest peers. `classes`
+    maps a node id to the PeerAgent subclass it runs (a Byzantine peer,
+    whose own chain the oracle skips). Round wall times are the gaps
+    between the first honest peer's per-round log stamps, the first from
+    the run's start. `verdicts` lists each verifier decision as [round,
+    pool, accepted]; under KRUM with a pool of 5 or more, Krum must have
     rejected an update in some round (a pool under 5 scores on no
-    neighbour, and one of 2 or less is accepted whole)."""
+    neighbour, and one of 2 or less is accepted whole). `accepted`,
+    `rejected` and `stake` are what the first honest peer's chain
+    recorded; `counters` sums the peers' LIVE_COUNTERS."""
     import asyncio
 
     from biscotti_tpu_torch.config import BiscottiConfig, Defense, Timeouts
@@ -1992,20 +2032,24 @@ def live_cluster(name: str, port: int, timeouts: dict, peers: int,
                 timeouts=Timeouts(**timeouts))
     base.update(kw)
     cfgs = [BiscottiConfig(node_id=i, **base) for i in range(peers)]
+    classes = classes or {}
+    honest = [i for i in range(peers) if i not in classes]
 
     async def go():
         from biscotti_tpu_torch.runtime.peer import PeerAgent
 
-        agents = [PeerAgent(c) for c in cfgs]
+        agents = [classes.get(c.node_id, PeerAgent)(c) for c in cfgs]
         t0 = time.time()
         results = await asyncio.gather(*(a.run() for a in agents))
         return agents, t0, time.time() - t0, results
 
     t_setup = time.perf_counter()
     agents, t0, run_s, results = asyncio.run(go())
-    dumps = [r["chain_dump"] for r in results]
+    anchor = agents[honest[0]]
+    dumps = [results[i]["chain_dump"] for i in honest]
     blocks = dumps[0].splitlines()[1:]
-    stamps = [float(line.split(",")[2]) for line in results[0]["logs"]]
+    stamps = [float(line.split(",")[2])
+              for line in results[honest[0]]["logs"]]
     phases: dict = {}
     for r in results:
         for ph, v in r["phases"].items():
@@ -2036,7 +2080,16 @@ def live_cluster(name: str, port: int, timeouts: dict, peers: int,
            # contributors
            "pools": stream,
            "block_sources": [sorted(u.source_id for u in b.data.deltas)
-                             for b in agents[0].chain.blocks[1:]]}
+                             for b in anchor.chain.blocks[1:]]}
+    records = [u for b in anchor.chain.blocks for u in b.data.deltas]
+    row.update(
+        byzantine={i: cls.__name__ for i, cls in sorted(classes.items())},
+        accepted=sorted(u.source_id for u in records if u.accepted),
+        rejected=sorted(u.source_id for u in records if not u.accepted),
+        stake=dict(sorted(anchor.chain.latest_stake_map().items())),
+        default_stake=cfgs[0].default_stake,
+        counters={k: sum(r["counters"].get(k, 0) for r in results)
+                  for k in LIVE_COUNTERS})
     if not (row["chains_equal"] and row["rounds"] == row["rounds_wanted"]
             and row["nonempty_blocks"] >= 1
             and row["devices"] == ["cuda:0"]):
@@ -2100,102 +2153,339 @@ def pooled(row: dict) -> list:
     return [(it, src) for it, src, _ in row["pools"]]
 
 
-def live_phase(prewarm_b3: dict) -> dict:
-    """The live peer on the card: clusters (a), (b) with its witness and
-    (c) of the module docstring and the verifier seam; returns the phase's
-    row with B2's and B3's launches in (b). `prewarm_b3` is one prewarm's
-    B3 launches at this width (the secagg phase's), which every armed peer
-    makes before its first round; (b)'s round launches are those beyond
-    them."""
-    import torch
+def byzantine_peers() -> dict:
+    """The Byzantine workers of live (d) and (e) on the port's PeerAgent,
+    as the reference's enforcement tests write them
+    (tests/test_byzantine.py:86-170): each submission is refused by the
+    miners' crypto, never by a defense."""
+    from biscotti_tpu_torch.runtime.peer import PeerAgent
 
+    class CorruptSharePeer(PeerAgent):
+        """Commits honestly, then ships garbage share rows."""
+
+        def _secret_arrays(self, shares, blind_rows, comms, sl):
+            arrays = super()._secret_arrays(shares, blind_rows, comms, sl)
+            arrays["share_rows"] = arrays["share_rows"] + 12345
+            return arrays
+
+    class ForgedCommitmentPeer(PeerAgent):
+        """Gets signatures over a commitment to zeros, shares its real
+        update."""
+
+        def _vss_build(self, q, it, *args):
+            return super()._vss_build(np.zeros_like(q), it, *args)
+
+    class PlusSharePeer(PeerAgent):
+        """Colluder A: +OFFSET on every share row cell."""
+
+        OFFSET = 12345
+
+        def _secret_arrays(self, shares, blind_rows, comms, sl):
+            arrays = super()._secret_arrays(shares, blind_rows, comms, sl)
+            arrays["share_rows"] = arrays["share_rows"] + self.OFFSET
+            return arrays
+
+    class MinusSharePeer(PlusSharePeer):
+        """Colluder B: -OFFSET, cancelling A in any batch holding both."""
+
+        OFFSET = -12345
+
+    class LyingListMiner(PeerAgent):
+        """A miner that lies colluder B out of its update list."""
+
+        OMIT = -1
+
+        async def _h_get_update_list(self, meta, arrays):
+            rmeta, arrs = await super()._h_get_update_list(meta, arrays)
+            rmeta["sources"] = [x for x in rmeta["sources"] if x != self.OMIT]
+            return rmeta, arrs
+
+    return {c.__name__: c for c in (CorruptSharePeer, ForgedCommitmentPeer,
+                                    PlusSharePeer, MinusSharePeer,
+                                    LyingListMiner)}
+
+
+def round0_roles(peers: int, miners: int, params: int) -> tuple:
+    """(workers, miners) of round 0: the committees every peer elects from
+    the genesis block (its stake map and hash)."""
+    from biscotti_tpu_torch.config import BiscottiConfig
+    from biscotti_tpu_torch.ledger.chain import Blockchain
+    from biscotti_tpu_torch.parallel import roles as R
+
+    chain = Blockchain(params, peers, BiscottiConfig().default_stake)
+    v, m = R.elect_committees(chain.latest_stake_map(), chain.latest_hash(),
+                              1, miners, peers)
+    busy = set(v) | set(m)
+    return sorted(i for i in range(peers) if i not in busy), sorted(m)
+
+
+class IntakeVerdicts:
+    """Records every `vss_verify_multi` call of the peers (the one-shot
+    intake, its bisection's singles and the aggregation-boundary
+    re-check): its instances and the verdict of whichever plane was
+    armed. `replay()` computes each call again with the plane disarmed,
+    on the native host plane."""
+
+    def __enter__(self):
+        from biscotti_tpu_torch.crypto import commitments as cm
+
+        self.cm, self.orig, self.calls = cm, cm.vss_verify_multi, []
+
+        def recording(instances, *a, **k):
+            ok = self.orig(instances, *a, **k)
+            self.calls.append(([tuple(np.array(x) for x in inst)
+                                for inst in instances], bool(ok)))
+            return ok
+
+        cm.vss_verify_multi = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.cm.vss_verify_multi = self.orig
+
+    def verdicts(self) -> list:
+        return [[len(insts), ok] for insts, ok in self.calls]
+
+    def replay(self) -> list:
+        return [[len(insts), bool(self.orig(insts))]
+                for insts, _ in self.calls]
+
+
+def armed_cluster(name: str, port: int, prewarm_b3: dict, peers: int,
+                  **kw) -> dict:
+    """live_cluster with the device plane armed on the card and
+    BISCOTTI_PALLAS_CRYPTO=1 (B2 once a miner's fold); the row gains B2's
+    launches, B3's beyond the peers' prewarms and the plane's calls."""
     from biscotti_tpu_torch.crypto import kernels
     from biscotti_tpu_torch.crypto.kernels import cuda_ladder as cl
     from biscotti_tpu_torch.crypto.kernels import cuda_validate as cv
 
-    t_phase = time.perf_counter()
-    fast = dict(update_s=20.0, block_s=60.0, krum_s=20.0, share_s=20.0,
-                rpc_s=20.0)
-    secagg = dict(dataset="mnist", secure_agg=True, noising=True,
-                  verification=True, epsilon=1.0)
-    a = live_cluster("a_secagg_native", LIVE_BASE_PORT, fast, LIVE_PEERS,
-                     max_iterations=3, **secagg)
-    emit("live", **a)
-    # (b)'s witness: its rounds on the native host plane. Every peer of
-    # both draws from seed 0, and the plane decides only which commitments
-    # and grids pass, so on the same pools the chains must agree hash for
-    # hash; a plane that refused a valid grid, or passed everything, would
-    # part them. A verifier pools the first krum_update_thresh updates to
-    # arrive (5 of a round's 6 workers here, the reference's main.go:680-684),
-    # so two runs of one cluster, on either plane, can pool other workers:
-    # a pair of runs is compared where every round pooled the same workers,
-    # and a pair that did not is run again, up to LIVE_PAIRS times.
-    # (b): the armed plane, whose ladders are kernel B3 since it replaced
-    # the eager ones (1e5 launches an msm, a 105 s round at 4 peers). The
-    # long windows stay: they cost nothing when no deadline is reached
-    armed = dict(update_s=120.0, block_s=300.0, krum_s=120.0, share_s=120.0,
-                 rpc_s=120.0)
-    for pair in range(LIVE_PAIRS):
-        w = live_cluster("b_witness_native", LIVE_BASE_PORT + 30, fast,
-                         LIVE_PEERS, max_iterations=3, batch_intake=True,
-                         **secagg)
-        emit("live", pair=pair, **w)
-        os.environ["BISCOTTI_PALLAS_CRYPTO"] = "1"
-        kernels.reset_counters()
-        cv.oncurve_mask.launches = 0
-        cl.reset_launches()
-        try:
-            b = live_cluster("b_secagg_device_crypto", LIVE_BASE_PORT + 10,
-                             armed, LIVE_PEERS, max_iterations=3,
-                             device_crypto=True, batch_intake=True, **secagg)
-            b["b2_launches"] = cv.oncurve_mask.launches
-            b["b3_launches"] = cl.launches()
-            b["device_crypto_calls"] = kernels.device_calls()
-            b["device_crypto_seconds"] = kernels.device_seconds()
-            b["armed_device"] = kernels.armed_device().type
-        finally:
-            kernels.set_enabled(False)
-            os.environ.pop("BISCOTTI_PALLAS_CRYPTO")
-        b["pair"] = pair
-        b["pools_equal_witness"] = pooled(b) == pooled(w)
-        if b["pools_equal_witness"]:
-            break
-        emit("live", **b)
+    os.environ["BISCOTTI_PALLAS_CRYPTO"] = "1"
+    kernels.reset_counters()
+    cv.oncurve_mask.launches = 0
+    cl.reset_launches()
+    try:
+        row = live_cluster(name, port, LIVE_ARMED, peers, device_crypto=True,
+                           **kw)
+        row["b2_launches"] = cv.oncurve_mask.launches
+        row["b3_launches"] = cl.launches()
+        row["device_crypto_calls"] = kernels.device_calls()
+        row["device_crypto_seconds"] = kernels.device_seconds()
+        row["armed_device"] = kernels.armed_device().type
+    finally:
+        kernels.set_enabled(False)
+        os.environ.pop("BISCOTTI_PALLAS_CRYPTO")
     # every grid_validate_sum call of a miner's fold launches B2 once
     # (prewarm's launches are on top: it runs under the same switch)
-    b["b2_fold_launches"] = b["device_crypto_calls"].get("grid_validate", 0)
-    b["b3_round_launches"] = {k: v - LIVE_PEERS * prewarm_b3[k]
-                              for k, v in b["b3_launches"].items()}
-    b["chain_equals_witness"] = b["chain"] == w["chain"]
-    emit("live", **b)
-    if not (b["b2_fold_launches"] >= 1
-            and b["b2_launches"] >= b["b2_fold_launches"]
-            and b["armed_device"] == "cuda"):
-        raise AssertionError(f"live cluster (b) did not run B2 in its "
-                             f"miners' folds on the card: {b}")
-    if min(b["b3_round_launches"][k] for k in
+    row["b2_fold_launches"] = row["device_crypto_calls"].get(
+        "grid_validate", 0)
+    row["b3_round_launches"] = {k: v - peers * prewarm_b3[k]
+                                for k, v in row["b3_launches"].items()}
+    return row
+
+
+def armed_launch_gates(row: dict) -> None:
+    """An armed run launched B2 in its miners' folds and B3a, B3c and B3d
+    in its rounds, on the card."""
+    if not (row["b2_fold_launches"] >= 1
+            and row["b2_launches"] >= row["b2_fold_launches"]
+            and row["armed_device"] == "cuda"):
+        raise AssertionError(f"live {row['cluster']} did not run B2 in its "
+                             f"miners' folds on the card: {row}")
+    if min(row["b3_round_launches"][k] for k in
            ("msm_ladder", "grid_validate_points", "point_add")) < 1:
-        raise AssertionError(f"live cluster (b)'s rounds did not launch B3a, "
-                             f"B3c and B3d: {b['b3_round_launches']}")
-    if not b["pools_equal_witness"]:
-        raise AssertionError(f"live cluster (b) and its witness pooled other "
-                             f"workers in each of {LIVE_PAIRS} pairs: "
-                             f"{b['pools']} vs {w['pools']}")
-    if not b["chain_equals_witness"]:
+        raise AssertionError(f"live {row['cluster']}'s rounds did not launch "
+                             f"B3a, B3c and B3d: {row['b3_round_launches']}")
+
+
+def armed_pair(name: str, witness: str, ports: tuple, prewarm_b3: dict,
+               budget: int, checks=None, **kw) -> tuple:
+    """(witness, armed): a cluster of LIVE_PEERS run on the native host
+    plane and then armed (armed_cluster), pair after pair until a pair
+    pooled the same workers in every round, up to `budget` pairs. A
+    verifier pools the first krum_update_thresh updates to arrive (the
+    reference's main.go:680-684, ROADMAP C8), so two runs of one cluster,
+    on either plane, can pool other workers. Every armed run is held to
+    armed_launch_gates and `checks(row)`, which need no witness. Both
+    planes draw from one seed and decide only which commitments and grids
+    pass, so on the same pools the chains must agree hash for hash: a
+    plane that refused a valid grid, or passed everything, would part
+    them."""
+    for pair in range(budget):
+        w = live_cluster(witness, ports[0], LIVE_FAST, LIVE_PEERS, **kw)
+        emit("live", pair=pair, **w)
+        row = armed_cluster(name, ports[1], prewarm_b3, LIVE_PEERS, **kw)
+        row["pair"] = pair
+        row["pools_equal_witness"] = pooled(row) == pooled(w)
+        row["chain_equals_witness"] = row["chain"] == w["chain"]
+        emit("live", **row)
+        armed_launch_gates(row)
+        if checks:
+            checks(row)
+        if row["pools_equal_witness"]:
+            break
+    if not row["pools_equal_witness"]:
+        raise AssertionError(f"live {name} and its witness pooled other "
+                             f"workers in each of {budget} pairs: "
+                             f"{row['pools']} vs {w['pools']}")
+    if not row["chain_equals_witness"]:
         raise AssertionError(
-            f"live cluster (b)'s chain is not its native witness's: "
-            f"{b['chain']} vs {w['chain']}; pools {b['pools']} vs "
-            f"{w['pools']}; contributors {b['block_sources']} vs "
+            f"live {name}'s chain is not its native witness's: "
+            f"{row['chain']} vs {w['chain']}; pools {row['pools']} vs "
+            f"{w['pools']}; contributors {row['block_sources']} vs "
             f"{w['block_sources']}")
-    c = live_cluster("c_cnn_plain", LIVE_BASE_PORT + 20, fast, LIVE_PEERS,
+    return w, row
+
+
+def offender_gates(row: dict, offenders) -> None:
+    """The honest majority's verdicts on the Byzantine peers: each
+    offender rejected, never accepted and debited below its genesis
+    stake, and some honest update in a block."""
+    for sid in offenders:
+        if not (sid in row["rejected"] and sid not in row["accepted"]
+                and row["stake"][sid] < row["default_stake"]):
+            raise AssertionError(f"live {row['cluster']}: offender {sid} was "
+                                 f"not rejected and debited: {row}")
+    if not row["accepted"]:
+        raise AssertionError(f"live {row['cluster']}: no honest update "
+                             f"entered a block: {row}")
+
+
+def witness_gates(row: dict, witness: dict) -> None:
+    """The accepted and rejected ids, the stake map and the chain the
+    native witness's."""
+    for key in ("accepted", "rejected", "stake", "chain"):
+        if row[key] != witness[key]:
+            raise AssertionError(f"live {row['cluster']}: {key} "
+                                 f"{row[key]} is not its native witness's "
+                                 f"{witness[key]}")
+
+
+def live_byzantine(prewarm_b3: dict) -> dict:
+    """live (d) and (e): armed Byzantine clusters on the card, each held to
+    a native-plane witness of the same classes and seed. Returns their
+    rows, B2's launches and B3's round launches (beyond the prewarms)."""
+    from biscotti_tpu_torch.config import Defense
+
+    cls = byzantine_peers()
+    # (d): 7 peers, secure aggregation, noising and verification with no
+    # defense, so the miners' crypto and not Krum must catch two of round
+    # 0's workers; pipelined rounds with speculation and batched intake.
+    # Every armed run is held to the offenders' verdicts and a clean
+    # speculation plane; the pair that pooled alike to its witness.
+    workers, _ = round0_roles(LIVE_PEERS, 1, 7850)
+    corrupt, forged = workers[-1], workers[-2]
+    d_classes = {corrupt: cls["CorruptSharePeer"],
+                 forged: cls["ForgedCommitmentPeer"]}
+
+    def d_checks(row):
+        offender_gates(row, (corrupt, forged))
+        spec = row["counters"]
+        if not (spec["speculation_ready"] > 0
+                and spec["speculation_error"] == 0):
+            raise AssertionError(f"live (d): speculation ready "
+                                 f"{spec['speculation_ready']}, errors "
+                                 f"{spec['speculation_error']}")
+
+    dw, d = armed_pair("d_byzantine_armed_pipelined", "d_witness_native",
+                       (LIVE_BASE_PORT + 40, LIVE_BASE_PORT + 50), prewarm_b3,
+                       BYZANTINE_PAIRS, d_checks, dataset="mnist",
+                       secure_agg=True, noising=True, verification=True,
+                       epsilon=1.0, defense=Defense.NONE, max_iterations=3,
+                       pipeline=True, speculation=True, batch_intake=True,
+                       classes=d_classes)
+    witness_gates(d, dw)
+    # (e): the reference's colluding cancellation (test_byzantine.py:171-
+    # 228): 7 peers, 2 miners, one round; colluders B (+e) and C (-e)
+    # cancel inside every miner's intake batch, the non-leader miner lies
+    # C out of the agreed set, and the leader's aggregation-boundary
+    # re-check must isolate B. Every worker is pooled (4 workers), so
+    # the pools, and with them the chain, are the witness's on any run.
+    workers, miners = round0_roles(LIVE_PEERS, 2, 7850)
+    plus, minus, liar = workers[0], workers[1], min(miners)
+    cls["LyingListMiner"].OMIT = minus
+    e_classes = {plus: cls["PlusSharePeer"], minus: cls["MinusSharePeer"],
+                 liar: cls["LyingListMiner"]}
+    e_kw = dict(dataset="mnist", secure_agg=True, verification=True,
+                defense=Defense.NONE, max_iterations=1, num_miners=2,
+                classes=e_classes)
+    ew = live_cluster("e_witness_native", LIVE_BASE_PORT + 60, LIVE_FAST,
+                      LIVE_PEERS, **e_kw)
+    emit("live", **ew)
+    with IntakeVerdicts() as intake:
+        e = armed_cluster("e_colluders_armed", LIVE_BASE_PORT + 70,
+                          prewarm_b3, LIVE_PEERS, **e_kw)
+    # each intake call of the armed run, computed again on the native
+    # plane from the same instances: the cancelled batch must pass on
+    # both, the boundary's partial batch and B's single fail on both
+    e["intake_verdicts"] = intake.verdicts()
+    e["intake_verdicts_native"] = intake.replay()
+    e["pools_equal_witness"] = pooled(e) == pooled(ew)
+    emit("live", **e)
+    if not (e["intake_verdicts"] == e["intake_verdicts_native"]
+            and any(n >= 2 and ok for n, ok in e["intake_verdicts"])
+            and any(not ok for _, ok in e["intake_verdicts"])):
+        raise AssertionError(f"live (e): the device's intake verdicts "
+                             f"{e['intake_verdicts']} are not the native "
+                             f"plane's {e['intake_verdicts_native']} on the "
+                             f"same instances")
+    offender_gates(e, (plus,))
+    if not e["pools_equal_witness"]:
+        raise AssertionError(f"live (e) pooled other workers than its "
+                             f"witness: {e['pools']} vs {ew['pools']}")
+    witness_gates(e, ew)
+    if minus in e["accepted"] or not any(w in e["accepted"]
+                                         for w in workers[2:]):
+        raise AssertionError(f"live (e): the lied-out colluder entered the "
+                             f"block, or no honest update did: {e}")
+    return {"d": d, "e": e,
+            "b2_launches": d["b2_launches"] + e["b2_launches"],
+            "b3_launches": {k: d["b3_round_launches"][k]
+                            + e["b3_round_launches"][k]
+                            for k in d["b3_round_launches"]}}
+
+
+def live_phase(prewarm_b3: dict) -> dict:
+    """The live peer on the card: clusters (a), (b) with its witness and
+    (c) of the module docstring, the verifier seam, and the armed
+    Byzantine clusters (d) and (e) with their witnesses; returns the
+    phase's row with B2's and B3's launches in (b), (d) and (e).
+    `prewarm_b3` is one prewarm's B3 launches at this width (the secagg
+    phase's), which every armed peer makes before its first round; the
+    round launches are those beyond them."""
+    import torch
+
+    t_phase = time.perf_counter()
+    secagg = dict(dataset="mnist", secure_agg=True, noising=True,
+                  verification=True, epsilon=1.0)
+    a = live_cluster("a_secagg_native", LIVE_BASE_PORT, LIVE_FAST, LIVE_PEERS,
+                     max_iterations=3, **secagg)
+    emit("live", **a)
+    # (b): the armed plane, whose ladders are kernel B3 since it replaced
+    # the eager ones (1e5 launches an msm, a 105 s round at 4 peers), held
+    # to its witness on the native host plane
+    _, b = armed_pair("b_secagg_device_crypto", "b_witness_native",
+                      (LIVE_BASE_PORT + 30, LIVE_BASE_PORT + 10), prewarm_b3,
+                      LIVE_PAIRS, max_iterations=3, batch_intake=True,
+                      **secagg)
+    c = live_cluster("c_cnn_plain", LIVE_BASE_PORT + 20, LIVE_FAST, LIVE_PEERS,
                      max_iterations=2, dataset="mnist", model_name="mnist_cnn",
                      secure_agg=False, noising=False, verification=True)
     emit("live", **c)
     seam = live_seam()
     emit("live", cluster="verifier_seam", **seam)
+    byz = live_byzantine(prewarm_b3)
     torch.cuda.synchronize()
-    return {"b2_launches": b["b2_launches"],
-            "b3_launches": b["b3_round_launches"],
+    return {"b2_launches": b["b2_launches"] + byz["b2_launches"],
+            "b2_launches_by_cluster": {"b": b["b2_launches"],
+                                       "d": byz["d"]["b2_launches"],
+                                       "e": byz["e"]["b2_launches"]},
+            "b3_launches": {k: v + byz["b3_launches"][k]
+                            for k, v in b["b3_round_launches"].items()},
+            "b3_launches_by_cluster": {
+                "b": b["b3_round_launches"],
+                "d": byz["d"]["b3_round_launches"],
+                "e": byz["e"]["b3_round_launches"]},
             "seconds": time.perf_counter() - t_phase}
 
 
