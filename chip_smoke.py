@@ -187,6 +187,41 @@ printed as one JSON line:
               aggregation-boundary re-check rejects and debits the
               remaining colluder, the lied-out one is not accepted and
               an honest update is;
+  chaos       the chaos CLI, `biscotti_tpu_torch.tools.chaos.main([...,
+              "--device", "cuda"])`, at the live width (mnist softmax, d =
+              7,850), with BISCOTTI_PALLAS_CRYPTO=1 and the B2 and B3
+              counters at 0 (`crypto_switch`), every agent it builds
+              recorded (`PeerRecorder`, each one's Trainer on the card):
+              (a) 7 peers, 3 rounds, secure aggregation, verification
+              and the device plane armed, 5 % drops, half the frames
+              delayed 0.05 s, peer 1 replaying each of its frames 20
+              times, admission on: the honest peers' settled prefixes
+              equal to a height of 2 with a real block, the flood
+              fired, the honest peers shed, every inflight and parked
+              peak within its cap, no breaker opened between honest
+              peers but on failures of dropped frames (the call times
+              out) or of calls to a peer that had ended its run and
+              closed its server (`PeerRecorder` records each open's
+              streak with the fault drawn for each attempt; a busy reply
+              never counts), the plane on the device with B3a and B3d
+              launched beyond the prewarms, B2's and B3c's launches
+              reported (a one-shot intake folds no grid), the wall time
+              within 60 s and two of the CLI's 75 s armed block windows
+              (ROADMAP C12: the flooder's calls resolve on a shed
+              replay's busy reply, so it fetches no block, waits out
+              rounds 1 and 2 and mints empty ones); the CLI's own
+              verdict, which the flooder's chain fails, is reported, not
+              gated; (b) 5 peers,
+              8 rounds, verification, churn 0.25 a period of 4 rounds, 2
+              down, churn seed 14 (a JOIN, a KILL and a RESTART):
+              rc 0 (the surviving-prefix oracle), the applied events a
+              non-empty prefix of the schedule, a member join seen; (c)
+              7 peers, 3 rounds, verification with 3 verifiers, the
+              roleflood campaign on 30 % of the ids (the attack
+              matrix's cell shape): rc 0, campaign actions, each logged
+              flood target the miner committee that the anchor's chain
+              re-derives, a defense verdict; (b) and (c) within 60 s
+              each;
   hive        co-hosted port peers on the card, one process, loopback
               transport, one batched SGD call a round (runtime/hive.py):
               (a) the reference's density entry at N = 100 (bench.py:452)
@@ -260,9 +295,10 @@ printed as one JSON line:
               hive's live pool, at the mesh's gathered pools and at each
               committee size of drivers (a) beside those at (716, 7850);
               B2's from the crypto and secagg phases' intakes, the live
-              miners' folds and drivers (c); B3a-B3d's from the crypto and
-              secagg intakes, live (b)'s rounds and drivers (c), each with
-              its times and bound at the settle's shape).
+              miners' folds, chaos (a) and drivers (c); B3a-B3d's from
+              the crypto and secagg intakes, the rounds of live (b), (d)
+              and (e) and of chaos (a) and drivers (c), each with its
+              times and bound at the settle's shape).
 
 Then the card's `name, power.limit` line as nvidia-smi prints it (the line
 the run's records are keyed by) and, last, the device JSON. Any
@@ -272,6 +308,7 @@ with no CUDA device it exits 1 at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -400,6 +437,26 @@ LIVE_COUNTERS = ("speculation_ready", "speculation_hit",
 # (two until the drivers phase joined the script: each round is ~40 s of
 # host time, and the script aims at half its 1200 s limit), (d) a
 # single-device BatchStepper cluster
+# chaos: the chaos CLI's cells at the live width (mnist softmax, d = 7,850)
+CHAOS_BASE_PORT = 18700
+CHAOS_CHURN_SEED = 14  # a JOIN, a KILL and a RESTART at 5 peers, 8 rounds
+CHAOS_CELL_S = 60.0  # each cell's budget
+# (a): the flooder's rounds 1 and 2 each wait out the CLI's armed block
+# window (75 s) before their empty fallback block (ROADMAP C12), so its
+# bound is the cell's budget and those two windows; a third stall fails
+CHAOS_A_STALLS = 2
+CHAOS_A_FLAGS = [
+    "--rounds", "3", "--secure-agg", "1", "--verification", "1",
+    "--device-crypto", "1", "--fault-drop", "0.05", "--fault-delay", "0.5",
+    "--fault-delay-s", "0.05", "--flood", "20", "--flood-node", "1",
+    "--admission", "1"]
+CHAOS_B_FLAGS = [
+    "--rounds", "8", "--verification", "1", "--churn", "0.25",
+    "--churn-period", "4", "--churn-down", "2", "--churn-seed",
+    str(CHAOS_CHURN_SEED)]
+CHAOS_C_FLAGS = [
+    "--rounds", "3", "--verification", "1", "--verifiers", "3",
+    "--campaign", "roleflood", "--campaign-attackers", "0.3"]
 HIVE_DENSITY_N = 100
 HIVE_CNN_N = 100
 HIVE_POOL_N = 528
@@ -1052,6 +1109,29 @@ def ladder_rows(dev, ladder: dict, wave1, gam, acc, summed1, summed2,
     return rows
 
 
+@contextlib.contextmanager
+def crypto_switch(arm: bool = False):
+    """BISCOTTI_PALLAS_CRYPTO=1 (kernel B2 in every grid validation) with
+    the B2 and B3 launch counters and the plane's call counters at 0;
+    `arm` also arms the device plane on the card (peers arm it from their
+    configs). On exit the switch is off and the plane disarmed."""
+    from biscotti_tpu_torch.crypto import kernels
+    from biscotti_tpu_torch.crypto.kernels import cuda_ladder as cl
+    from biscotti_tpu_torch.crypto.kernels import cuda_validate as cv
+
+    os.environ["BISCOTTI_PALLAS_CRYPTO"] = "1"
+    kernels.reset_counters()
+    cv.oncurve_mask.launches = 0
+    cl.reset_launches()
+    try:
+        if arm:
+            kernels.set_enabled(True)
+        yield
+    finally:
+        kernels.set_enabled(False)
+        os.environ.pop("BISCOTTI_PALLAS_CRYPTO", None)
+
+
 def crypto_phase(dev, grid: np.ndarray, a, b, ladder: dict) -> dict:
     """The device crypto plane in VssIntakeBatch's order at full width,
     then card vs CPU, times and a profile of the settle's msm."""
@@ -1087,54 +1167,51 @@ def crypto_phase(dev, grid: np.ndarray, a, b, ladder: dict) -> dict:
            for _ in range(n)]
 
     # the intake, launches counted from 0: two wave folds and the settle
-    os.environ["BISCOTTI_PALLAS_CRYPTO"] = "1"
-    cv.oncurve_mask.launches = 0
-    cl.reset_launches()
-    t0 = time.perf_counter()
-    mask1, summed1 = prim.grid_validate_sum(wave1)
-    wave1_launches = cv.oncurve_mask.launches
-    mask2, summed2 = prim.grid_validate_sum(wave2)
-    acc = prim.ext_add(summed1, summed2)
-    m = int(mask1.sum()) + int(mask2.sum())
-    rhs = prim.msm(gam, acc)
-    comb = (m * sum(g * s for g, s in zip(gam, a)),
-            m * sum(g * s for g, s in zip(gam, b)))
-    lhs = prim.pedersen_commit_point(*comb)
-    settled = ed.point_equal(lhs, rhs)
-    intake_s = time.perf_counter() - t0
-    launches = cv.oncurve_mask.launches
-    gam_bad = list(gam)
-    gam_bad[17] = (gam_bad[17] + 1) % ed.Q
-    perturbed = ed.point_equal(lhs, prim.msm(gam_bad, acc))
-    b3_launches = cl.launches()  # the folds, the settle, the perturbed one
-    # one settle-width msm: one ladder launch and the tree's two
-    cl.reset_launches()
-    prim.msm(gam, acc)
-    msm_launches = cl.launches()
+    with crypto_switch():
+        t0 = time.perf_counter()
+        mask1, summed1 = prim.grid_validate_sum(wave1)
+        wave1_launches = cv.oncurve_mask.launches
+        mask2, summed2 = prim.grid_validate_sum(wave2)
+        acc = prim.ext_add(summed1, summed2)
+        m = int(mask1.sum()) + int(mask2.sum())
+        rhs = prim.msm(gam, acc)
+        comb = (m * sum(g * s for g, s in zip(gam, a)),
+                m * sum(g * s for g, s in zip(gam, b)))
+        lhs = prim.pedersen_commit_point(*comb)
+        settled = ed.point_equal(lhs, rhs)
+        intake_s = time.perf_counter() - t0
+        launches = cv.oncurve_mask.launches
+        gam_bad = list(gam)
+        gam_bad[17] = (gam_bad[17] + 1) % ed.Q
+        perturbed = ed.point_equal(lhs, prim.msm(gam_bad, acc))
+        b3_launches = cl.launches()  # the folds, the settle, the perturbed one
+        # one settle-width msm: one ladder launch and the tree's two
+        cl.reset_launches()
+        prim.msm(gam, acc)
+        msm_launches = cl.launches()
 
-    # card against the CPU port on a small wave (the switch still on)
-    ns = min(64, n)
-    small = grid.reshape(n, 64)[:ns].copy()
-    small_bad = small.copy()
-    small_bad[ns // 2, 40] ^= 2  # a bit of one cell's y
-    wave_s = [small, small_bad, small]
-    gm, gs = prim.grid_validate_sum(wave_s)
-    cmask, cs = prim.grid_validate_sum(wave_s, device="cpu")
-    ga, ca = prim.ext_add(gs, gs), prim.ext_add(cs, cs, device="cpu")
-    parity = {"mask_equal": bool(np.array_equal(gm, cmask)),
-              "summed_equal": bool(np.array_equal(gs, cs)),
-              "ext_add_equal": bool(np.array_equal(ga, ca)),
-              "msm_equal": prim.msm(gam[:ns], ga) == prim.msm(gam[:ns], ca,
-                                                               device="cpu"),
-              "mask": gm.tolist()}
+        # card against the CPU port on a small wave (the switch still on)
+        ns = min(64, n)
+        small = grid.reshape(n, 64)[:ns].copy()
+        small_bad = small.copy()
+        small_bad[ns // 2, 40] ^= 2  # a bit of one cell's y
+        wave_s = [small, small_bad, small]
+        gm, gs = prim.grid_validate_sum(wave_s)
+        cmask, cs = prim.grid_validate_sum(wave_s, device="cpu")
+        ga, ca = prim.ext_add(gs, gs), prim.ext_add(cs, cs, device="cpu")
+        parity = {"mask_equal": bool(np.array_equal(gm, cmask)),
+                  "summed_equal": bool(np.array_equal(gs, cs)),
+                  "ext_add_equal": bool(np.array_equal(ga, ca)),
+                  "msm_equal": prim.msm(gam[:ns], ga) == prim.msm(gam[:ns], ca,
+                                                                   device="cpu"),
+                  "mask": gm.tolist()}
 
     # times (host clock, median of 3; each call ends in a host copy)
     times = {}
-    os.environ.pop("BISCOTTI_PALLAS_CRYPTO")
     times["fold_switch_off_s"] = host_s(lambda: prim.grid_validate_sum(wave2))[0]
-    os.environ["BISCOTTI_PALLAS_CRYPTO"] = "1"
-    times["fold_switch_on_s"] = host_s(lambda: prim.grid_validate_sum(wave2))[0]
-    os.environ.pop("BISCOTTI_PALLAS_CRYPTO")
+    with crypto_switch():
+        times["fold_switch_on_s"] = host_s(
+            lambda: prim.grid_validate_sum(wave2))[0]
     xy2 = np.stack([gp.xy_bytes_to_limbs(g.tobytes(), n) for g in wave2])
     times["host_oracle_s"] = host_s(lambda: prim._cell_canonical_mask(xy2))[0]
     times["fold_switch_on_minus_oracle_s"] = (times["fold_switch_on_s"]
@@ -1305,10 +1382,7 @@ def secagg_phase(dev) -> dict:
     corrupt[3] = (members[3][0], c_rows, members[3][2])
 
     # the plane's one-time costs, outside the intake's counts
-    os.environ["BISCOTTI_PALLAS_CRYPTO"] = "1"
-    kernels.set_enabled(True)
-    try:
-        cl.reset_launches()
+    with crypto_switch(arm=True):
         t0 = time.perf_counter()
         kernels.prewarm(d)
         prewarm_s = time.perf_counter() - t0
@@ -1324,9 +1398,6 @@ def secagg_phase(dev) -> dict:
         t0 = time.perf_counter()
         rec_card = ss.recover_update(agg, xs_all, d)
         rec_card_s = time.perf_counter() - t0
-    finally:
-        kernels.set_enabled(False)
-        os.environ.pop("BISCOTTI_PALLAS_CRYPTO")
     cl.reset_launches()
     cpu = _settled_intake(members, waves, xs, rows, ent)
     cpu_bad = _settled_intake(corrupt, [honest], xs, rows, ent)
@@ -2260,11 +2331,7 @@ def armed_cluster(name: str, port: int, prewarm_b3: dict, peers: int,
     from biscotti_tpu_torch.crypto.kernels import cuda_ladder as cl
     from biscotti_tpu_torch.crypto.kernels import cuda_validate as cv
 
-    os.environ["BISCOTTI_PALLAS_CRYPTO"] = "1"
-    kernels.reset_counters()
-    cv.oncurve_mask.launches = 0
-    cl.reset_launches()
-    try:
+    with crypto_switch():
         row = live_cluster(name, port, LIVE_ARMED, peers, device_crypto=True,
                            **kw)
         row["b2_launches"] = cv.oncurve_mask.launches
@@ -2272,9 +2339,6 @@ def armed_cluster(name: str, port: int, prewarm_b3: dict, peers: int,
         row["device_crypto_calls"] = kernels.device_calls()
         row["device_crypto_seconds"] = kernels.device_seconds()
         row["armed_device"] = kernels.armed_device().type
-    finally:
-        kernels.set_enabled(False)
-        os.environ.pop("BISCOTTI_PALLAS_CRYPTO")
     # every grid_validate_sum call of a miner's fold launches B2 once
     # (prewarm's launches are on top: it runs under the same switch)
     row["b2_fold_launches"] = row["device_crypto_calls"].get(
@@ -2486,6 +2550,258 @@ def live_phase(prewarm_b3: dict) -> dict:
                 "b": b["b3_round_launches"],
                 "d": byz["d"]["b3_round_launches"],
                 "e": byz["e"]["b3_round_launches"]},
+            "seconds": time.perf_counter() - t_phase}
+
+
+class PeerRecorder:
+    """Every PeerAgent built while it is entered, incarnations included:
+    the chaos CLI imports the class when it runs, so a subclass put in its
+    module's place records each agent the CLI makes. Each agent keeps, in
+    `opened`, one [peer, streak] a breaker open: the failures that opened
+    it, each [msg_type, attempt, the fault the plan drew for that attempt,
+    the error, whether the peer's newest incarnation still served]. A
+    call draws its fault in its own task just before it fails, so the
+    task's last draw is the failed attempt's."""
+
+    def __enter__(self):
+        import asyncio
+        import weakref
+
+        from biscotti_tpu_torch.runtime import peer
+
+        self.mod, self.orig, self.agents = peer, peer.PeerAgent, []
+        made = self.agents
+
+        class Recorded(peer.PeerAgent):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                self.drawn = weakref.WeakKeyDictionary()
+                self.streaks, self.opened = {}, []
+                inj = self.pool.faults
+                if inj is not None:
+                    draw, drawn = inj.action, self.drawn
+
+                    def action(host, port, msg_type, attempt=0):
+                        act = draw(host, port, msg_type, attempt)
+                        drawn[asyncio.current_task()] = [msg_type, attempt,
+                                                         act.kind()]
+                        return act
+
+                    inj.action = action
+                made.append(self)
+
+            def _record_peer_ok(self, peer_id):
+                self.streaks.pop(peer_id, None)
+                super()._record_peer_ok(peer_id)
+
+            def _record_peer_fail(self, peer_id):
+                err = sys.exc_info()[1]
+                dst = [a.server._server for a in made if a.id == peer_id]
+                self.streaks.setdefault(peer_id, []).append(
+                    self.drawn.get(asyncio.current_task(),
+                                   [None, None, "none"])
+                    + [type(err).__name__,
+                       bool(dst and dst[-1] and dst[-1].is_serving())])
+                opens = self.counters.get("breaker_open", 0)
+                super()._record_peer_fail(peer_id)
+                if self.counters.get("breaker_open", 0) > opens:
+                    self.opened.append([peer_id, self.streaks.pop(peer_id)])
+
+        peer.PeerAgent = Recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.PeerAgent = self.orig
+
+
+def chaos_cell(name: str, nodes: int, flags: list, prewarm_b3: dict) -> tuple:
+    """One run of `biscotti_tpu_torch.tools.chaos.main` on the card at the
+    live width, under BISCOTTI_PALLAS_CRYPTO=1 with the B2 and B3 counters
+    at 0: (its row, its report, every agent it built)."""
+    import io
+
+    from biscotti_tpu_torch.crypto import kernels
+    from biscotti_tpu_torch.crypto.kernels import cuda_ladder as cl
+    from biscotti_tpu_torch.crypto.kernels import cuda_validate as cv
+    from biscotti_tpu_torch.tools import chaos
+
+    port = free_base(CHAOS_BASE_PORT, nodes)
+    argv = ["--nodes", str(nodes), "--dataset", "mnist", "--device", "cuda",
+            "--base-port", str(port)] + flags
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with crypto_switch(), PeerRecorder() as rec, \
+            contextlib.redirect_stdout(out):
+        rc = chaos.main(argv)
+        b2 = cv.oncurve_mask.launches
+        b3 = cl.launches()
+        calls = kernels.device_calls()
+    wall_s = time.perf_counter() - t0
+    report = json.loads(out.getvalue())
+    armed = "--device-crypto" in flags
+    row = {"cell": name, "argv": argv, "rc": rc, "wall_s": wall_s,
+           "rounds": report["rounds"], "agents": len(rec.agents),
+           "devices": sorted({(a.device.type, str(a.trainer.x_test.device))
+                              for a in rec.agents}),
+           "b2_launches": b2, "b2_fold_launches": calls.get("grid_validate", 0),
+           "b3_launches": b3,
+           # every armed peer prewarms once before its first round
+           "b3_round_launches": {k: v - (nodes * prewarm_b3[k] if armed else 0)
+                                 for k, v in b3.items()},
+           **{k: report[k] for k in (
+               "settled_prefix_equal", "settled_height", "real_blocks",
+               "faults_injected", "rpc_retries", "breaker_opens", "sheds",
+               "admission_enabled", "flood", "device_crypto", "churn",
+               "campaign", "defense_verdict")}}
+    if row["devices"] != [("cuda", "cuda:0")]:
+        raise AssertionError(f"chaos {name} left the card: {row}")
+    return row, report, rec.agents
+
+
+def elected_miners(anchor) -> dict:
+    """Each settled round's miner committee, re-derived from `anchor`'s
+    chain by the election every peer runs."""
+    from biscotti_tpu_torch.parallel import roles
+
+    c, chain, out = anchor.cfg, anchor.chain, {}
+    for blk in chain.blocks[1:]:
+        prev = chain.get_block(blk.iteration - 1)
+        if prev is not None:
+            _, miners = roles.elect_committees(
+                dict(prev.stake_map), prev.hash, c.num_verifiers,
+                c.num_miners, c.num_nodes)
+            out[blk.iteration] = sorted(miners)
+    return out
+
+
+def chaos_faults_overload(prewarm_b3: dict) -> dict:
+    """chaos (a) of the module docstring: its row, gated."""
+    from biscotti_tpu_torch.tools.chaos import chain_oracle
+
+    row, report, agents = chaos_cell("a_faults_overload_armed", 7,
+                                     CHAOS_A_FLAGS, prewarm_b3)
+    flooder = int(report["flood"]["node"])
+    honest = [n for n in report["per_node"] if n["node"] != flooder]
+    # ROADMAP C12: the flooder's own calls resolve on a shed replay's busy
+    # reply, so at this width it cannot fetch a block and mints its own
+    # empty ones; the protocol's promise is the honest peers' prefix
+    equal, height, real = chain_oracle(
+        [{"chain_dump": a.chain.dump()} for a in agents if a.id != flooder])
+    block_s = agents[0].timeouts.block_s
+    row.update(
+        honest_prefix_equal=equal, honest_height=height, honest_real=real,
+        flooder_counters={k: v for a in agents if a.id == flooder
+                          for k, v in sorted(a.counters.items())
+                          if k.startswith(("rpc_busy", "breaker", "block_",
+                                           "round_stall"))},
+        honest_shed_total=sum(n["admission"]["shed_total"] for n in honest),
+        peaks=[[n["node"], n["admission"]["inflight_peak"],
+                n["admission"]["caps"]["global_inflight"],
+                n["admission"]["parked_peak"],
+                n["admission"]["caps"]["max_parked"]]
+               for n in report["per_node"]],
+        # every open between honest peers, with the streak that opened it
+        honest_breaker_opens=[[a.id, pid, streak] for a in agents
+                              if a.id != flooder
+                              for pid, streak in a.opened if pid != flooder],
+        wall_bound_s=CHAOS_CELL_S + CHAOS_A_STALLS * block_s)
+    emit("chaos", **row)
+    if not (equal and height >= 2 and real >= 1):
+        raise AssertionError(f"chaos (a): the honest peers' settled prefixes "
+                             f"differ, reach no height 2 or hold no real "
+                             f"block: {row}")
+    if not (row["faults_injected"].get("flood", 0)
+            and row["honest_shed_total"] > 0):
+        raise AssertionError(f"chaos (a): no flood or no honest shed: {row}")
+    if not all(inf <= inf_cap and park <= max(1, park_cap)
+               for _, inf, inf_cap, park, park_cap in row["peaks"]):
+        raise AssertionError(f"chaos (a): a peak over its cap: {row['peaks']}")
+    # the breaker counts a dropped frame's timed-out call and a call to a
+    # peer that has ended its run and closed its server; BusyError, the
+    # overload's answer, never counts, and no other failure may open a
+    # breaker between honest peers
+    if not all((kind == "drop" and err == "TimeoutError") or not serving
+               for *_, streak in row["honest_breaker_opens"]
+               for _, _, kind, err, serving in streak):
+        raise AssertionError(f"chaos (a): a breaker opened between honest "
+                             f"peers on a failure that is neither a dropped "
+                             f"frame nor a peer gone: "
+                             f"{row['honest_breaker_opens']}")
+    if row["device_crypto"]["path"] != "device" or min(
+            row["b3_round_launches"][k]
+            for k in ("msm_ladder", "point_add")) < 1:
+        raise AssertionError(f"chaos (a) did not run the plane on the card "
+                             f"(B3a and B3d in its rounds): {row}")
+    if row["wall_s"] > row["wall_bound_s"]:
+        raise AssertionError(f"chaos (a) took {row['wall_s']:.1f} s, over "
+                             f"its {row['wall_bound_s']:.0f} s: {row}")
+    return row
+
+
+def chaos_churn(prewarm_b3: dict) -> dict:
+    """chaos (b) of the module docstring: its row, gated."""
+    from biscotti_tpu_torch.runtime.faults import FaultPlan
+
+    row, report, _ = chaos_cell("b_churn", 5, CHAOS_B_FLAGS, prewarm_b3)
+    churn = report["churn"]
+    row["churn_schedule"] = [[e.round, e.node, e.kind] for e in FaultPlan(
+        seed=CHAOS_CHURN_SEED, churn=churn["fraction"],
+        churn_period=churn["period"], churn_down=churn["down"],
+    ).churn_schedule(5, report["rounds"])]
+    row["member_join"] = report["cluster"]["counters"].get("member_join", 0)
+    emit("chaos", **row)
+    applied = churn["events_applied"]
+    if row["rc"] != 0 or row["wall_s"] > CHAOS_CELL_S:
+        raise AssertionError(f"chaos (b): rc {row['rc']} (the surviving-"
+                             f"prefix oracle) in {row['wall_s']:.1f} s, over "
+                             f"{CHAOS_CELL_S} s or failed: {row}")
+    if not applied or applied != row["churn_schedule"][:len(applied)] \
+            or row["member_join"] < 1:
+        raise AssertionError(f"chaos (b): the applied events are no prefix of "
+                             f"the schedule, or no join was seen: {row}")
+    return row
+
+
+def chaos_campaign(prewarm_b3: dict) -> dict:
+    """chaos (c) of the module docstring: its row, gated."""
+    row, _, agents = chaos_cell("c_campaign_roleflood", 7, CHAOS_C_FLAGS,
+                                prewarm_b3)
+    elected = elected_miners(next(a for a in agents if a.id == 0))
+    checked, targets = [], {}
+    for a in agents:
+        if a.campaign is None:
+            continue
+        logged = {e[0]: e[2] for e in a.campaign.schedule if e[1] == "target"}
+        targets[a.id] = logged
+        checked += [[a.id, it, logged[it], miners]
+                    for it, miners in elected.items()
+                    if it in logged and a.id not in miners]
+    row.update(flood_targets=targets, targets_vs_elected=checked)
+    emit("chaos", **row)
+    if row["rc"] != 0 or row["wall_s"] > CHAOS_CELL_S:
+        raise AssertionError(f"chaos (c): rc {row['rc']} in "
+                             f"{row['wall_s']:.1f} s, over {CHAOS_CELL_S} s "
+                             f"or failed: {row}")
+    if not (sum(row["campaign"]["actions"].values()) > 0 and checked
+            and row["defense_verdict"]
+            and all(t == m for _, _, t, m in checked)):
+        raise AssertionError(f"chaos (c): no action, a flood target off the "
+                             f"elected committee or no verdict: {row}")
+    return row
+
+
+def chaos_phase(prewarm_b3: dict) -> dict:
+    """The chaos CLI on the card, cells (a)-(c) of the module docstring;
+    returns the phase's row with (a)'s B2 and B3 launches."""
+    import torch
+
+    t_phase = time.perf_counter()
+    a = chaos_faults_overload(prewarm_b3)
+    chaos_churn(prewarm_b3)
+    chaos_campaign(prewarm_b3)
+    torch.cuda.synchronize()
+    return {"b2_launches": a["b2_launches"],
+            "b3_launches": a["b3_round_launches"],
             "seconds": time.perf_counter() - t_phase}
 
 
@@ -3088,10 +3404,12 @@ def entry_phase() -> dict:
     return row
 
 
-def ladder_line(crypto: dict, secagg: dict, live: dict, drivers: dict):
+def ladder_line(crypto: dict, secagg: dict, live: dict, chaos: dict,
+                drivers: dict):
     """The kernels line's rows of B3a-B3d: launches on the main paths by
-    phase (the crypto intake, secagg's armed intakes, live (b)'s rounds
-    beyond the peers' prewarms, drivers (c)'s msm), and the times and
+    phase (the crypto intake, secagg's armed intakes, the rounds of live
+    (b), (d) and (e) and of chaos (a) beyond the peers' prewarms, drivers
+    (c)'s msm), and the times and
     bound at the shape the settle gives each (B3a's 8,192 lanes, B3b's
     Pedersen comb at 1 x 512, B3c's verdicts of 64 x 7,850 cells, the
     instance `grid_sum` runs, B3d's ext_add of 7,850 pairs), the other
@@ -3101,6 +3419,7 @@ def ladder_line(crypto: dict, secagg: dict, live: dict, drivers: dict):
         by_phase = {"crypto": crypto["b3_launches"][wrapper],
                     "secagg": secagg["b3_launches"][wrapper],
                     "live": live["b3_launches"][wrapper],
+                    "chaos": chaos["b3_launches"][wrapper],
                     "drivers": drivers["b3_crypto_kernel"][wrapper]}
         timed = crypto["ladder"][kid]
         main = timed[-1] if kid == "B3b" else timed[0]
@@ -3394,6 +3713,9 @@ def main() -> int:
     # live: slice 6, clusters of port peers on the card --------------------
     live = live_phase(secagg["b3_launches_prewarm"])
 
+    # chaos: the chaos CLI's fault, overload, churn and campaign planes ----
+    chaos = chaos_phase(secagg["b3_launches_prewarm"])
+
     # hive: slice 7, co-hosted port peers on the card -----------------------
     hive = hive_phase(dev)
 
@@ -3448,15 +3770,17 @@ def main() -> int:
         "source": "biscotti_tpu_torch/csrc/oncurve.cu",
         "replaces": "biscotti_tpu/crypto/kernels/pallas_validate.py:34",
         "launches": (crypto["oncurve_launches"] + secagg["b2_launches"]
-                     + live["b2_launches"] + drivers["b2_crypto_kernel"]),
+                     + live["b2_launches"] + chaos["b2_launches"]
+                     + drivers["b2_crypto_kernel"]),
         "launches_by_phase": {"crypto": crypto["oncurve_launches"],
                               "secagg": secagg["b2_launches"],
                               "live": live["b2_launches"],
+                              "chaos": chaos["b2_launches"],
                               "drivers": drivers["b2_crypto_kernel"]},
         "max_abs_err": b2["max_abs_err"],
         "ms": b2["ms"], "plain_ms": b2["plain_ms"],
         "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],
-        "library_ms": None}] + ladder_line(crypto, secagg, live, drivers)}),
+        "library_ms": None}] + ladder_line(crypto, secagg, live, chaos, drivers)}),
         flush=True)
     print(smi, flush=True)  # the card's name and power limit, verbatim
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
 """Shared harness of the live twins (`tests/test_torch_byzantine.py`,
 `_pipeline_live`, `_fault_injection`, `_partition`, `_upgrade`,
-`_membership_live`, `_late_joiner` and `_stragglers_live`): one scenario
+`_membership_live`, `_late_joiner`, `_stragglers_live`, `_faults_live`,
+`_admission_live`, `_adversary_live`, `_tracing_live`, `_placement_live`
+and `_churn_live`): one scenario
 of a reference live test runs twice on one seed, once on the reference's
 `PeerAgent`s and once on the port's (`device="cpu"`), both built from
 the same config keywords. Each test then makes the reference test's own
@@ -39,6 +41,11 @@ MODULES = {
     "wire": "runtime.wire", "cm": "crypto.commitments",
     "ss": "ops.secretshare", "chaos": "tools.chaos", "obs": "tools.obs",
     "profile_round": "tools.profile_round", "trainer": "models.trainer",
+    "admission": "runtime.admission", "adversary": "runtime.adversary",
+    "placement": "runtime.placement", "hive": "runtime.hive",
+    "messages": "runtime.messages", "telemetry": "telemetry",
+    "tracectx": "telemetry.tracectx", "registry": "telemetry.registry",
+    "trace_round": "tools.trace_round",
 }
 
 
@@ -192,6 +199,23 @@ def honest_outcome(agents, skip=()):
 def assert_same_outcome(ref, port, keys=("accepted", "rejected", "stake")):
     for k in keys:
         assert port[k] == ref[k], f"{k}: port {port[k]} != reference {ref[k]}"
+
+
+def each_package(scenario):
+    """`scenario(pkg)` on the reference, then on the port, for a scenario
+    pure in its inputs (a mocked transport, fixed frames): the port's
+    record must be the reference's."""
+    ref, port = (scenario(pkg) for pkg in PACKAGES)
+    assert port == ref, f"port {port} != reference {ref}"
+    return ref
+
+
+def tight_admission(pkg):
+    """The reference tests' TIGHT admission plan (test_admission.py:57):
+    honest traffic stays ~10x under these rates while a flood overruns
+    the bucket."""
+    return pkg.admission.AdmissionPlan(enabled=True, update_rate=8.0,
+                                       bulk_rate=6.0, control_rate=16.0)
 
 
 def twin(scenario, port, stride=20):
