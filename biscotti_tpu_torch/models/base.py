@@ -132,9 +132,60 @@ class Model:
         return (pred != y).to(torch.float32).mean()
 
 
+class _BiasAdd(torch.autograd.Function):
+    """y + b over the batch rows of y; b's gradient is the rows' sum in
+    their order, one float32 add a row, as the reference's XLA reduce
+    gives it. `torch.sum` over the rows (and `torch.cumsum`, which
+    accumulates in double) rounds such a sum otherwise: at a zero-
+    initialized model's first step the bias gradients are exact decimals
+    (4 × 0.0125 − 4 × 0.1125 is −0.4f in order, −0.39999998 in torch's),
+    whose quantization then parts (ROADMAP C15)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(y, b):
+        return y + b
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        s = g[0]
+        for r in range(1, g.shape[0]):
+            s = s + g[r]
+        return g, s
+
+
+def add_bias(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A dense layer's y [rows, k] + b [k]: on the CPU through `_BiasAdd`,
+    the reference's order; on the card torch's own add, whose sums follow
+    the card's order as its matrix products do (ROADMAP C10)."""
+    if y.device.type == "cpu":
+        return _BiasAdd.apply(y, b)
+    return y + b
+
+
+def log_softmax(logits: torch.Tensor) -> torch.Tensor:
+    """On the CPU `jax.nn.log_softmax` written out, so that autograd takes
+    the reference's backward: shifted − log Σ exp(shifted), the max held
+    constant. Its gradient is g − exp(shifted)·Σg/Σexp(shifted);
+    `torch.log_softmax`'s is g − exp(log p)·Σg, and exp(log 0.1) is 0.1f
+    less one ulp. At a zero-initialized CNN's first step the bias deltas
+    are such exact decimals (−0.1f), whose quantization truncates to −999
+    instead of the reference's −1000 (ROADMAP C15). On the card,
+    `torch.log_softmax` (see `add_bias`)."""
+    if logits.device.type != "cpu":
+        return torch.log_softmax(logits, dim=-1)
+    shifted = logits - logits.max(dim=-1, keepdim=True).values.detach()
+    return shifted - torch.log(torch.exp(shifted).sum(dim=-1, keepdim=True))
+
+
 def cross_entropy(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Mean CE over the batch (ref: nn.CrossEntropyLoss, client.py:29)."""
-    logp = torch.log_softmax(logits, dim=-1)
+    logp = log_softmax(logits)
     return -torch.gather(logp, -1, y[:, None].long()).mean()
 
 

@@ -40,8 +40,9 @@ import torch
 import torch.nn.functional as F
 
 from biscotti_tpu_torch.data.datasets import base_name, spec as dspec
-from biscotti_tpu_torch.models.base import (Leaf, Model, cross_entropy,
-                                            multiclass_hinge, unravel)
+from biscotti_tpu_torch.models.base import (Leaf, Model, add_bias,
+                                            cross_entropy, multiclass_hinge,
+                                            unravel)
 
 
 def _dense_leaves(name: str, d_in: int, d_out: int) -> Tuple[Leaf, ...]:
@@ -63,7 +64,7 @@ def _dense_apply(d_in: int, k: int) -> Callable:
     def apply(flat_w, x):
         b = flat_w[:k]
         w = flat_w[k:].reshape(d_in, k)
-        return x.reshape(x.shape[0], d_in) @ w + b
+        return add_bias(x.reshape(x.shape[0], d_in) @ w, b)
 
     return apply
 
@@ -144,7 +145,7 @@ def _flat_nhwc(h: torch.Tensor) -> torch.Tensor:
 
 
 def _dense(h: torch.Tensor, p: Dict[str, torch.Tensor], name: str) -> torch.Tensor:
-    return h @ p[f"{name}.w"] + p[f"{name}.b"]
+    return add_bias(h @ p[f"{name}.w"], p[f"{name}.b"])
 
 
 def _cnn_model(name: str, d_in: int, n_classes: int, leaves: Tuple[Leaf, ...],

@@ -222,6 +222,34 @@ printed as one JSON line:
               flood target the miner committee that the anchor's chain
               re-derives, a defense verdict; (b) and (c) within 60 s
               each;
+  protocol    the keyed and CNN-width secure-aggregation paths armed on
+              the card, each beside a native-plane witness of the same
+              settings and seed, paired as `live` (b) until a pair pooled
+              alike (up to PROTOCOL_PAIRS): (a) 4 cifar_cnn peers at full
+              width (d = 62,006), secure aggregation, verification, no
+              defense, batch 4 (the reference's test_runtime.py:222),
+              pipelined with batched intake, 2 rounds: the chain, the
+              rejected ids and the stakes the witness's, B2 in the miners'
+              folds and B3a, B3b, B3c and B3d launched in the rounds beyond
+              the peers' prewarms (each peer's prewarm taken at this
+              width); (b) 4 peers keyed by the dealerless genesis
+              (`tools.keygen.generate_dkg`, d = 7,850), 2 rounds, the
+              witness keyed from the same directory: nothing rejected,
+              every accepted commitment 32 bytes, a commit key on every
+              peer, the chain the witness's; before it, B3a on the msm of
+              a keyed commitment over the transcript's generators and B3b
+              on H's table, bit for bit against their plain versions, the
+              device's commitment the native plane's; (c) the reference's
+              codec acceptance (test_wire_codecs.py:346): 4 mnist_cnn peers
+              (d = 164,266) with the Trainers on the card and the native
+              crypto plane, 2 rounds under raw64 and under f32+zlib: each
+              run's chains equal, no submission rejected, and the block
+              gossip's bytes a round at least PROTOCOL_GOSSIP_X times
+              fewer under f32+zlib. Then B2 and B3c at the cifar_cnn
+              fold's cells, B3a and B3d's tree at (a)'s settle msm and B3b
+              at (b)'s keyed Pedersen comb, the inputs the rounds gave
+              them (`KernelInputs`), each against its plain version, timed
+              through its wrapper, alone and plain, beside its bound;
   hive        co-hosted port peers on the card, one process, loopback
               transport, one batched SGD call a round (runtime/hive.py):
               (a) the reference's density entry at N = 100 (bench.py:452)
@@ -295,10 +323,12 @@ printed as one JSON line:
               hive's live pool, at the mesh's gathered pools and at each
               committee size of drivers (a) beside those at (716, 7850);
               B2's from the crypto and secagg phases' intakes, the live
-              miners' folds, chaos (a) and drivers (c); B3a-B3d's from
-              the crypto and secagg intakes, the rounds of live (b), (d)
-              and (e) and of chaos (a) and drivers (c), each with its
-              times and bound at the settle's shape).
+              miners' folds, chaos (a), protocol (a) and (b) and drivers
+              (c); B3a-B3d's from the crypto and secagg intakes, the
+              rounds of live (b), (d) and (e), of chaos (a), of protocol
+              (a) and (b) and drivers (c), each with its times and bound
+              at the settle's shape and, under `at`, the protocol
+              phase's).
 
 Then the card's `name, power.limit` line as nvidia-smi prints it (the line
 the run's records are keyed by) and, last, the device JSON. Any
@@ -430,7 +460,8 @@ LIVE_ARMED = dict(update_s=120.0, block_s=300.0, krum_s=120.0, share_s=120.0,
 LIVE_COUNTERS = ("speculation_ready", "speculation_hit",
                  "speculation_discard", "speculation_error",
                  "submission_rejected", "vss_batch_settled",
-                 "intake_preverified")
+                 "intake_preverified", "secret_registered",
+                 "update_rejected")
 # the hive phase: (a) the reference's density entry at N = 100 (its CLI's
 # default ports, 8000 + id), (b) 100 mnist_cnn peers, (c) N = 528, whose
 # verifier pools 526 updates, inside B1's 512..4096 window, for one round
@@ -457,6 +488,21 @@ CHAOS_B_FLAGS = [
 CHAOS_C_FLAGS = [
     "--rounds", "3", "--verification", "1", "--verifiers", "3",
     "--campaign", "roleflood", "--campaign-attackers", "0.3"]
+# protocol: (a) 4 cifar_cnn peers armed at full width (models/zoo.py's
+# 62,006 parameters), (b) 4 peers keyed by the dealerless genesis at the
+# mnist softmax width, each beside a native witness, 2 rounds, up to
+# PROTOCOL_PAIRS pairs until a pair pooled alike (ROADMAP C8); (c) the
+# reference's codec acceptance: 4 mnist_cnn peers under raw64 and under
+# f32+zlib, the block gossip at least PROTOCOL_GOSSIP_X times smaller
+PROTOCOL_BASE_PORT = 18800
+PROTOCOL_PEERS = 4
+PROTOCOL_ROUNDS = 2
+PROTOCOL_PAIRS = 6
+PROTOCOL_CNN_PARAMS = 62_006
+PROTOCOL_KEYED_PARAMS = 7_850
+PROTOCOL_KEY_SEED = 5  # generate_dkg's ceremony seed (test_dkg.py:248)
+PROTOCOL_CODECS = ("raw64", "f32+zlib")
+PROTOCOL_GOSSIP_X = 3.0  # test_wire_codecs.py:368
 HIVE_DENSITY_N = 100
 HIVE_CNN_N = 100
 HIVE_POOL_N = 528
@@ -915,6 +961,54 @@ def crypto_kernel_phase(dev, grid: np.ndarray, mix) -> dict:
     return row
 
 
+def once_ms(fn) -> float:
+    """The device time of one call (CUDA events), for a plain ladder whose
+    call at a shape of the protocol phase takes seconds."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def ladder_record(rows: dict, phase: str, ladder: dict, flag, kid: str,
+                  shape, got, want, wrapper, alone, plain_ms, bound: dict,
+                  report=None) -> dict:
+    """One row of a ladder kernel against its plain version: the outputs
+    `got` and `want` equal element for element, the wrapper's and the
+    kernel's alone times (CUDA events, median of 20), `plain_ms()`'s, the
+    ptxas report (`report`, else the kernel's) and `bound`; emitted under
+    `phase` and kept in `rows[kid]`. Raises if they differ or the kernel
+    flagged a limb of its inputs."""
+    import torch
+
+    torch.cuda.synchronize()
+    mism = sum(int((g != w).sum()) for g, w in zip(got, want))
+    err = max(float((g.long() - w.long()).abs().max()) for g, w
+              in zip(got, want))
+    if report is None:
+        report = ladder["ptxas"][kid]
+    r = {"kernel": kid, "shape": shape, "mismatches": mism,
+         "max_abs_err": err, "ms": time_ms(wrapper),
+         "kernel_only_ms": time_ms(alone), "plain_ms": plain_ms(),
+         "registers": report.get("registers"),
+         "spill_stores": report.get("spill_stores"),
+         **bound}
+    if int(flag):
+        raise AssertionError(f"{kid} flagged a limb of its own inputs")
+    emit(phase, **r)
+    rows.setdefault(kid, []).append(r)
+    if mism:
+        raise AssertionError(f"{kid} differs from its plain version at "
+                             f"{shape} in {mism} places")
+    return r
+
+
 def ladder_rows(dev, ladder: dict, wave1, gam, acc, summed1, summed2,
                 fixed_scalars, pedersen_ab) -> dict:
     """Kernels B3a-B3d against their plain versions on the card at the
@@ -947,26 +1041,9 @@ def ladder_rows(dev, ladder: dict, wave1, gam, acc, summed1, summed2,
 
     def record(kid, shape, got, want, wrapper, alone, plain, bound,
                plain_reps=20, report=None):
-        torch.cuda.synchronize()
-        mism = sum(int((g != w).sum()) for g, w in zip(got, want))
-        err = max(float((g.long() - w.long()).abs().max()) for g, w
-                  in zip(got, want))
-        if report is None:
-            report = ladder["ptxas"][kid]
-        r = {"kernel": kid, "shape": shape, "mismatches": mism,
-             "max_abs_err": err, "ms": time_ms(wrapper),
-             "kernel_only_ms": time_ms(alone),
-             "plain_ms": time_ms(plain, reps=plain_reps),
-             "registers": report.get("registers"),
-             "spill_stores": report.get("spill_stores"),
-             **bound}
-        if int(flag):
-            raise AssertionError(f"{kid} flagged a limb of its own inputs")
-        emit("crypto", **r)
-        rows.setdefault(kid, []).append(r)
-        if mism:
-            raise AssertionError(f"{kid} differs from its plain version at "
-                                 f"{shape} in {mism} places")
+        ladder_record(rows, "crypto", ladder, flag, kid, shape, got, want,
+                      wrapper, alone, lambda: time_ms(plain, reps=plain_reps),
+                      bound, report)
 
     # B3a: the settle's msm lanes
     bits_np, pts_np = prim.msm_lanes(gam, acc)
@@ -2079,7 +2156,8 @@ def free_base(port: int, n: int) -> int:
 
 
 def live_cluster(name: str, port: int, timeouts: dict, peers: int,
-                 classes: dict | None = None, **kw) -> dict:
+                 classes: dict | None = None, agent_kw: dict | None = None,
+                 **kw) -> dict:
     """`peers` port PeerAgents on the card (device None: the GPU) in one
     event loop over loopback TCP, run to the end; the cluster's row, with
     the chain-equality oracle checked over the honest peers. `classes`
@@ -2091,7 +2169,10 @@ def live_cluster(name: str, port: int, timeouts: dict, peers: int,
     rejected an update in some round (a pool under 5 scores on no
     neighbour, and one of 2 or less is accepted whole). `accepted`,
     `rejected` and `stake` are what the first honest peer's chain
-    recorded; `counters` sums the peers' LIVE_COUNTERS."""
+    recorded; `counters` sums the peers' LIVE_COUNTERS. `agent_kw` goes to
+    every PeerAgent (a `key_dir`); the row also has the accepted records'
+    commitment lengths, the peers holding a commit key and the block
+    gossip's bytes out by codec (`gossip_bytes`)."""
     import asyncio
 
     from biscotti_tpu_torch.config import BiscottiConfig, Defense, Timeouts
@@ -2109,7 +2190,8 @@ def live_cluster(name: str, port: int, timeouts: dict, peers: int,
     async def go():
         from biscotti_tpu_torch.runtime.peer import PeerAgent
 
-        agents = [classes.get(c.node_id, PeerAgent)(c) for c in cfgs]
+        agents = [classes.get(c.node_id, PeerAgent)(c, **(agent_kw or {}))
+                  for c in cfgs]
         t0 = time.time()
         results = await asyncio.gather(*(a.run() for a in agents))
         return agents, t0, time.time() - t0, results
@@ -2160,7 +2242,11 @@ def live_cluster(name: str, port: int, timeouts: dict, peers: int,
         stake=dict(sorted(anchor.chain.latest_stake_map().items())),
         default_stake=cfgs[0].default_stake,
         counters={k: sum(r["counters"].get(k, 0) for r in results)
-                  for k in LIVE_COUNTERS})
+                  for k in LIVE_COUNTERS},
+        commitment_lengths=sorted({len(u.commitment) for u in records
+                                   if u.accepted}),
+        keyed_peers=sum(a.commit_key is not None for a in agents),
+        gossip_bytes_out=gossip_bytes(results))
     if not (row["chains_equal"] and row["rounds"] == row["rounds_wanted"]
             and row["nonempty_blocks"] >= 1
             and row["devices"] == ["cuda:0"]):
@@ -2172,6 +2258,20 @@ def live_cluster(name: str, port: int, timeouts: dict, peers: int,
         raise AssertionError(f"live cluster {name}: no live round ran Krum "
                              f"on a pool of 5 or more: {verdicts}")
     return row
+
+
+def gossip_bytes(results) -> dict:
+    """{codec: bytes} the peers sent as RegisterBlock frames (the block
+    gossip), from each run's `biscotti_wire_bytes_total`."""
+    out: dict = {}
+    for r in results:
+        fam = r["telemetry"]["metrics"].get("biscotti_wire_bytes_total", {})
+        for row in fam.get("series", []):
+            lb = row["labels"]
+            if lb.get("direction") == "out" \
+                    and lb.get("msg_type") == "RegisterBlock":
+                out[lb["codec"]] = out.get(lb["codec"], 0) + row["value"]
+    return out
 
 
 def live_seam() -> dict:
@@ -2363,27 +2463,29 @@ def armed_launch_gates(row: dict) -> None:
 
 
 def armed_pair(name: str, witness: str, ports: tuple, prewarm_b3: dict,
-               budget: int, checks=None, **kw) -> tuple:
-    """(witness, armed): a cluster of LIVE_PEERS run on the native host
+               budget: int, checks=None, peers: int = LIVE_PEERS,
+               phase: str = "live", gates=None, **kw) -> tuple:
+    """(witness, armed): a cluster of `peers` run on the native host
     plane and then armed (armed_cluster), pair after pair until a pair
     pooled the same workers in every round, up to `budget` pairs. A
     verifier pools the first krum_update_thresh updates to arrive (the
     reference's main.go:680-684, ROADMAP C8), so two runs of one cluster,
     on either plane, can pool other workers. Every armed run is held to
-    armed_launch_gates and `checks(row)`, which need no witness. Both
+    `gates` (armed_launch_gates unless given) and `checks(row)`, which
+    need no witness; `phase` labels the rows. Both
     planes draw from one seed and decide only which commitments and grids
     pass, so on the same pools the chains must agree hash for hash: a
     plane that refused a valid grid, or passed everything, would part
     them."""
     for pair in range(budget):
-        w = live_cluster(witness, ports[0], LIVE_FAST, LIVE_PEERS, **kw)
-        emit("live", pair=pair, **w)
-        row = armed_cluster(name, ports[1], prewarm_b3, LIVE_PEERS, **kw)
+        w = live_cluster(witness, ports[0], LIVE_FAST, peers, **kw)
+        emit(phase, pair=pair, **w)
+        row = armed_cluster(name, ports[1], prewarm_b3, peers, **kw)
         row["pair"] = pair
         row["pools_equal_witness"] = pooled(row) == pooled(w)
         row["chain_equals_witness"] = row["chain"] == w["chain"]
-        emit("live", **row)
-        armed_launch_gates(row)
+        emit(phase, **row)
+        (gates or armed_launch_gates)(row)
         if checks:
             checks(row)
         if row["pools_equal_witness"]:
@@ -2802,6 +2904,369 @@ def chaos_phase(prewarm_b3: dict) -> dict:
     torch.cuda.synchronize()
     return {"b2_launches": a["b2_launches"],
             "b3_launches": a["b3_round_launches"],
+            "seconds": time.perf_counter() - t_phase}
+
+
+class KernelInputs:
+    """The largest input each kernel got on the card while this is entered,
+    cloned, so the phase can time the kernels at the main path's own shapes
+    after the run: B2's cells (`cuda_validate._launch`), B3a's lanes, B3b's
+    bits and table (keyed by the table's rows: 256 for B or H, 512 for the
+    Pedersen comb's B‖H), B3c's grid cells (`cuda_ladder._launch`) and the
+    points of B3d's trees over one column, the msm's (`_counted_tree`).
+    Only the module-level launchers are swapped; the counting wrappers run
+    as before."""
+
+    def __enter__(self):
+        from biscotti_tpu_torch.crypto.kernels import cuda_ladder as cl
+        from biscotti_tpu_torch.crypto.kernels import cuda_validate as cv
+
+        self.seen: dict = {}
+        self.swapped = [(cv, "_launch", cv._launch),
+                        (cl, "_launch", cl._launch),
+                        (cl, "_counted_tree", cl._counted_tree)]
+
+        def keep(key, *ts):
+            # the latest of the largest: a round's call, not the prewarm's
+            if ts[0].is_cuda and ts[0].numel() >= self.seen.get(key, (0,))[0]:
+                self.seen[key] = (ts[0].numel(), [t.clone() for t in ts])
+
+        def b2(xy, *a, **k):
+            keep("B2", xy)
+            return self.swapped[0][2](xy, *a, **k)
+
+        def b3(wrapper, entry, args, *a, **k):
+            if entry == "ed25519_msm_ladder":
+                keep("B3a", args[0], args[2])
+            elif entry == "ed25519_fixed_walk":
+                keep(f"B3b/{args[2].shape[0]}", args[0], args[2])
+            elif entry == "ed25519_grid_points" and args[2] is None:
+                keep("B3c", args[0])
+            return self.swapped[1][2](wrapper, entry, args, *a, **k)
+
+        def tree(name, src, rows, cols, *a, **k):
+            if cols == 1:  # column_sum's [rows, 1, 4, 16] view of the points
+                keep("B3d", src.reshape(rows, *src.shape[-2:]))
+            return self.swapped[2][2](name, src, rows, cols, *a, **k)
+
+        cv._launch, cl._launch, cl._counted_tree = b2, b3, tree
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.swapped:
+            setattr(mod, name, fn)
+
+    def get(self, key: str) -> list:
+        if key not in self.seen:
+            raise AssertionError(f"protocol: no {key} launch was recorded "
+                                 f"on the card ({sorted(self.seen)})")
+        return self.seen[key][1]
+
+
+def protocol_rows(dev, ladder: dict, mix, cnn: KernelInputs,
+                  keyed: KernelInputs) -> dict:
+    """B2, B3a, B3c and B3d at the shapes (a)'s armed rounds gave them (the
+    fold's cells at the cifar_cnn width, its settle's msm lanes and their
+    tree), B3b at (b)'s keyed settle's Pedersen comb: each against its
+    plain version (bit for bit), through its wrapper and alone (CUDA
+    events, median of 20) and plain (one call: the plain ladders take
+    seconds at these widths), beside its bound. Launches made here are
+    comparisons, not main-path launches. Returns {id: row}."""
+    import torch
+
+    from biscotti_tpu_torch import _build
+    from biscotti_tpu_torch.crypto.kernels import cuda_ladder as cl
+    from biscotti_tpu_torch.crypto.kernels import cuda_validate as cv
+
+    lib = _build.load("ed25519_ladder")
+    stream = torch.cuda.current_stream().cuda_stream
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    lay = ladder["layout"]
+    rows: dict = {}
+
+    # B2: the fold's on-curve cells
+    (xy,) = cnn.get("B2")
+    n = len(xy)
+    got, want = cv.oncurve_mask(xy), cv.oncurve_mask_plain(xy)
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    olib = _build.load("oncurve")
+    bound_ms, bound_by, _ = oncurve_bound(n, mix)
+    r = {"kernel": "B2", "shape": [n], "mismatches": int((got != want).sum()),
+         "max_abs_err": float((got.int() - want.int()).abs().max()),
+         "ms": time_ms(lambda: cv.oncurve_mask(xy)),
+         "kernel_only_ms": time_ms(lambda: olib.oncurve_mask_i64(
+             xy.data_ptr(), out.data_ptr(), flag.data_ptr(), n, stream)),
+         "plain_ms": once_ms(lambda: cv.oncurve_mask_plain(xy)),
+         "bound_ms": bound_ms, "bound_by": bound_by}
+    emit("protocol", **r)
+    rows["B2"] = [r]
+    if r["mismatches"] or int(flag):
+        raise AssertionError(f"B2 at the cifar_cnn fold's {n} cells: {r}")
+
+    # B3a: the settle's msm lanes
+    bits, pts = cnn.get("B3a")
+    m, words = bits.shape
+    out = torch.empty_like(pts)
+    lanes = cl.msm_ladder(bits, pts)
+    want = cl.msm_ladder_plain(bits, pts)
+    ladder_record(rows, "protocol", ladder, flag, "B3a", [m, 32 * words],
+                  (lanes,), (want,), lambda: cl.msm_ladder(bits, pts),
+                  lambda: lib.ed25519_msm_ladder(
+                      bits.data_ptr(), words, pts.data_ptr(), out.data_ptr(),
+                      flag.data_ptr(), m, stream),
+                  lambda: once_ms(lambda: cl.msm_ladder_plain(bits, pts)),
+                  {**msm_ladder_bound(bits.cpu().numpy(),
+                                      bits.nbytes + 2 * pts.nbytes, lay),
+                   "threads_a_lane": lay["kMsmGroup"]})
+
+    # B3d: the tree over those lanes
+    (src,) = cnn.get("B3d")
+    m = len(src)
+    ladder_record(rows, "protocol", ladder, flag, "B3d", ["tree", m],
+                  (cl.tree_sum(src),), (cl.column_tree_plain(src),),
+                  lambda: cl.tree_sum(src),
+                  lambda: cl.tree_launches(lib, src, m, 1, flag, stream),
+                  lambda: once_ms(lambda: cl.column_tree_plain(src)),
+                  {**tree_bound(m, 1, (m + 1) * 4 * 16 * 8, lay),
+                   "threads_a_lane": lay["kAddGroup"]})
+
+    # B3c: the fold's grid verdicts (grid_sum's instance)
+    (xy,) = cnn.get("B3c")
+    w, ncol = xy.shape[:2]
+    ok = torch.empty((w, ncol), dtype=torch.bool, device=dev)
+    report = ladder["ptxas"]["B3c"].get("instances", {})
+    report = next((r for k, r in report.items() if "ILb0E" in k), {})
+    ladder_record(rows, "protocol", ladder, flag, "B3c", [w, ncol],
+                  (cl.grid_verdicts(xy),), (cl.grid_verdicts_plain(xy),),
+                  lambda: cl.grid_verdicts(xy),
+                  lambda: lib.ed25519_grid_points(
+                      xy.data_ptr(), ok.data_ptr(), None, flag.data_ptr(),
+                      w * ncol, stream),
+                  lambda: once_ms(lambda: cl.grid_verdicts_plain(xy)),
+                  {**grid_cell_bound(w * ncol, False),
+                   "threads_a_cell": 1}, report=report)
+
+    # B3b: the keyed settle's Pedersen comb on B‖H
+    bits, table = keyed.get("B3b/512")
+    m, words = bits.shape
+    out = torch.empty((m, 4, 16), dtype=torch.int64, device=dev)
+    ladder_record(rows, "protocol", ladder, flag, "B3b", [m, 32 * words],
+                  (cl.fixed_walk(bits, table),),
+                  (cl.fixed_walk_plain(bits, table),),
+                  lambda: cl.fixed_walk(bits, table),
+                  lambda: lib.ed25519_fixed_walk(
+                      bits.data_ptr(), words, table.data_ptr(),
+                      out.data_ptr(), flag.data_ptr(), m, stream),
+                  lambda: once_ms(lambda: cl.fixed_walk_plain(bits, table)),
+                  {**fixed_walk_bound(bits.cpu().numpy(),
+                                      bits.nbytes + table.nbytes + out.nbytes,
+                                      lay),
+                   "threads_a_lane": 4 * lay["kWalkGroup"]})
+    return {k: v[0] for k, v in rows.items()}
+
+
+def keyed_ladders(dev, key_dir: str) -> dict:
+    """B3a on the msm of a keyed commitment, Σ qᵢ·Gᵢ over the transcript-
+    derived generators of `key_dir`'s commit key at seeded quantized
+    entries, and B3b on H's table at scalars drawn from the transcript,
+    each bit for bit against its plain version; the device's commitment
+    is the native plane's (`commit_update`). Comparisons, not main-path
+    launches."""
+    import hashlib
+
+    import torch
+
+    from biscotti_tpu_torch.crypto import commitments as cm
+    from biscotti_tpu_torch.crypto import ed25519 as ed
+    from biscotti_tpu_torch.crypto.kernels import cuda_ladder as cl
+    from biscotti_tpu_torch.crypto.kernels import group as gp
+    from biscotti_tpu_torch.crypto.kernels import primitives as prim
+
+    with open(os.path.join(key_dir, "commit_key.json")) as f:
+        key = cm.CommitKey.deserialize(json.load(f)["points"])
+    with open(os.path.join(key_dir, "genesis.json")) as f:
+        transcript = bytes.fromhex(json.load(f)["transcript"])
+    q = np.random.default_rng(0).integers(-3000, 3000, len(key.points))
+    bits_np, pts_np = prim.msm_lanes([int(v) % ed.Q for v in q], key.points)
+    bits, pts = (torch.from_numpy(a).to(dev) for a in (bits_np, pts_np))
+    lanes = cl.msm_ladder(bits, pts)
+    msm_equal = torch.equal(lanes, cl.msm_ladder_plain(bits, pts))
+    point = gp.limbs_to_point(cl.tree_sum(lanes).cpu().numpy())
+    commitment_equal = ed.point_compress(point) == cm.commit_update(q, key)
+    scalars = [int.from_bytes(hashlib.sha512(transcript + bytes([i])).digest(),
+                              "little") % ed.Q for i in range(4)]
+    fbits = torch.from_numpy(prim.fixed_lanes(scalars)).to(dev)
+    table = torch.from_numpy(prim._fixed_table("H")).to(dev)
+    walk_equal = torch.equal(cl.fixed_walk(fbits, table),
+                             cl.fixed_walk_plain(fbits, table))
+    row = {"generators": len(key.points), "msm_lanes": len(bits),
+           "b3a_equals_plain": msm_equal,
+           "commitment_equals_native": commitment_equal,
+           "b3b_lanes": len(fbits), "b3b_equals_plain": walk_equal}
+    emit("protocol", cell="keyed_ladders", **row)
+    if not (msm_equal and commitment_equal and walk_equal):
+        raise AssertionError(f"protocol (b): the keyed ladders are not their "
+                             f"plain versions: {row}")
+    return row
+
+
+def warm_cell(cfg) -> None:
+    """One step and one test error of a throwaway Trainer of `cfg`'s model
+    on the card, and one native VSS commitment at its width: a cluster's
+    first round must not absorb them."""
+    from biscotti_tpu_torch.crypto import commitments as cm
+    from biscotti_tpu_torch.models.trainer import Trainer
+    from biscotti_tpu_torch.ops import secretshare as ss
+
+    t = Trainer(cfg.dataset, f"{cfg.dataset}0", cfg=cfg, seed=0)
+    w = np.zeros(t.num_params)
+    t.private_fun(w, 0)
+    t.test_error(w)
+    c = ss.num_chunks(t.num_params, cfg.poly_size)
+    cm.vss_commit_chunks_bytes(np.zeros((c, cfg.poly_size), np.int64),
+                               bytes(32), b"warm")
+
+
+def protocol_armed_gates(row: dict) -> None:
+    """armed_launch_gates, and B3b's launches beyond the prewarms too."""
+    armed_launch_gates(row)
+    if row["b3_round_launches"]["fixed_walk"] < 1:
+        raise AssertionError(f"protocol {row['cluster']}'s rounds did not "
+                             f"launch B3b: {row['b3_round_launches']}")
+
+
+def protocol_phase(dev, ladder: dict, mix, prewarm_b3: dict) -> dict:
+    """The keyed and CNN-width secure-aggregation paths armed on the card,
+    and the reference's codec acceptance, cells (a)-(c) of the module
+    docstring; `prewarm_b3` is one prewarm's B3 launches at the mnist
+    width (the secagg phase's), (a)'s is taken here at its own. Returns
+    the phase's row with B2's and B3's launches and the kernels' rows at
+    the new shapes."""
+    import tempfile
+
+    import torch
+
+    from biscotti_tpu_torch.config import BiscottiConfig, Defense
+    from biscotti_tpu_torch.crypto import kernels
+    from biscotti_tpu_torch.crypto.kernels import cuda_ladder as cl
+    from biscotti_tpu_torch.ops import secretshare as ss
+    from biscotti_tpu_torch.tools import keygen
+
+    t_phase = time.perf_counter()
+    # (a): 4 cifar_cnn peers at full width, the settings of the
+    # reference's test_runtime.py:222 with pipelined rounds and batched
+    # intake, so the miners' grid folds run B2 and B3c at this width
+    t0 = time.perf_counter()
+    poly = BiscottiConfig().poly_size
+    ck = ss.num_chunks(PROTOCOL_CNN_PARAMS, poly) * poly  # the peers' prewarm
+    with crypto_switch(arm=True):
+        kernels.prewarm(ck)
+        prewarm_cnn = cl.launches()
+    # a process's first cifar_cnn step and first native commitment at this
+    # width, outside the witness's first round window
+    warm_cell(BiscottiConfig(dataset="cifar", model_name="cifar_cnn",
+                             batch_size=4))
+    a_kw = dict(dataset="cifar", model_name="cifar_cnn", secure_agg=True,
+                verification=True, defense=Defense.NONE, batch_size=4,
+                pipeline=True, batch_intake=True,
+                max_iterations=PROTOCOL_ROUNDS, peers=PROTOCOL_PEERS)
+    with KernelInputs() as cnn_inputs:
+        aw, a = armed_pair("a_cnn_secagg_armed", "a_cnn_witness_native",
+                           (PROTOCOL_BASE_PORT, PROTOCOL_BASE_PORT + 10),
+                           prewarm_cnn, PROTOCOL_PAIRS, protocol_armed_gates,
+                           phase="protocol", **a_kw)
+    witness_gates(a, aw)
+    if a["params"] != PROTOCOL_CNN_PARAMS:
+        raise AssertionError(f"protocol (a) ran {a['params']} parameters")
+    a["seconds"] = time.perf_counter() - t0
+    emit("protocol", cell="cnn_secagg", params=a["params"],
+         b2_fold_launches=a["b2_fold_launches"],
+         b3_round_launches=a["b3_round_launches"],
+         b3_prewarm=prewarm_cnn, seconds=a["seconds"])
+
+    # (b): 4 peers keyed by the dealerless genesis at the mnist width
+    t0 = time.perf_counter()
+    key_dir = tempfile.mkdtemp(prefix="protocol_keys_")
+    keygen.generate_dkg(dims=PROTOCOL_KEYED_PARAMS, nodes=PROTOCOL_PEERS,
+                        out_dir=key_dir, rng_seed=PROTOCOL_KEY_SEED)
+    keyed = keyed_ladders(dev, key_dir)
+
+    def b_checks(row):
+        # the one-shot intake (no batch_intake, as the reference's cluster)
+        # folds no grid: B2 runs in the prewarms only, B3c not at all
+        if not (row["armed_device"] == "cuda" and min(
+                row["b3_round_launches"][k] for k in
+                ("msm_ladder", "fixed_walk", "point_add")) >= 1):
+            raise AssertionError(f"protocol (b)'s rounds did not launch B3a, "
+                                 f"B3b and B3d on the card: {row}")
+        if not (row["rejected"] == [] and row["accepted"]
+                and row["commitment_lengths"] == [32]
+                and row["keyed_peers"] == PROTOCOL_PEERS
+                and row["counters"]["submission_rejected"] == 0):
+            raise AssertionError(f"protocol (b): a keyed run rejected, "
+                                 f"minted nothing or ran unkeyed: {row}")
+
+    with KernelInputs() as keyed_inputs:
+        bw, b = armed_pair("b_dkg_keyed_armed", "b_dkg_witness_native",
+                           (PROTOCOL_BASE_PORT + 20, PROTOCOL_BASE_PORT + 30),
+                           prewarm_b3, PROTOCOL_PAIRS, gates=b_checks,
+                           phase="protocol", peers=PROTOCOL_PEERS,
+                           agent_kw={"key_dir": key_dir}, dataset="mnist",
+                           secure_agg=True, verification=True,
+                           max_iterations=PROTOCOL_ROUNDS)
+    witness_gates(b, bw)
+    b["seconds"] = time.perf_counter() - t0
+    emit("protocol", cell="dkg_keyed", keyed=keyed,
+         b2_fold_launches=b["b2_fold_launches"],
+         b3_round_launches=b["b3_round_launches"], seconds=b["seconds"])
+
+    # (c): the reference's codec acceptance (test_wire_codecs.py:346)
+    # with the Trainers on the card and the native crypto plane
+    t0 = time.perf_counter()
+    warm_cell(BiscottiConfig(dataset="mnist", model_name="mnist_cnn"))
+    c = {}
+    for k, codec in enumerate(PROTOCOL_CODECS):
+        c[codec] = live_cluster(
+            f"c_codecs_{codec}", PROTOCOL_BASE_PORT + 40 + 10 * k, LIVE_FAST,
+            PROTOCOL_PEERS, dataset="mnist", model_name="mnist_cnn",
+            secure_agg=True, noising=False, verification=True, batch_size=8,
+            seed=3, wire_codec=codec, max_iterations=PROTOCOL_ROUNDS)
+        emit("protocol", **c[codec])
+    per_round = {codec: sum(r["gossip_bytes_out"].values()) / r["rounds"]
+                 for codec, r in c.items()}
+    errors = {codec: r["final_error"] for codec, r in c.items()}
+    ratio = per_round["raw64"] / per_round["f32+zlib"]
+    codecs_row = {"cell": "codecs", "params": c["raw64"]["params"],
+                  "gossip_bytes_per_round": per_round, "ratio": ratio,
+                  "reference_bar": PROTOCOL_GOSSIP_X, "final_error": errors,
+                  "seconds": time.perf_counter() - t0}
+    emit("protocol", **codecs_row)
+    for codec, r in c.items():
+        if r["counters"]["submission_rejected"] \
+                or not r["counters"]["secret_registered"]:
+            raise AssertionError(f"protocol (c) {codec}: a submission was "
+                                 f"rejected or no secret registered: {r}")
+    if not ratio >= PROTOCOL_GOSSIP_X:
+        raise AssertionError(f"protocol (c): f32+zlib sent {ratio:.2f}x fewer "
+                             f"gossip bytes a round than raw64, not "
+                             f"{PROTOCOL_GOSSIP_X}x: {per_round}")
+    if abs(errors["raw64"] - errors["f32+zlib"]) > 0.2:
+        raise AssertionError(f"protocol (c): final errors part: {errors}")
+
+    shapes = protocol_rows(dev, ladder, mix, cnn_inputs, keyed_inputs)
+    torch.cuda.synchronize()
+    emit("protocol", cell="phase", seconds=time.perf_counter() - t_phase,
+         cells_s={"a": a["seconds"], "b": b["seconds"],
+                  "c": codecs_row["seconds"]})
+    return {"b2_launches": a["b2_launches"] + b["b2_launches"],
+            "b2_launches_by_cell": {"a": a["b2_launches"],
+                                    "b": b["b2_launches"]},
+            "b3_launches": {k: a["b3_round_launches"][k]
+                            + b["b3_round_launches"][k]
+                            for k in a["b3_round_launches"]},
+            "b3_launches_by_cell": {"a": a["b3_round_launches"],
+                                    "b": b["b3_round_launches"]},
+            "shapes": shapes, "gossip_ratio": ratio,
             "seconds": time.perf_counter() - t_phase}
 
 
@@ -3405,24 +3870,27 @@ def entry_phase() -> dict:
 
 
 def ladder_line(crypto: dict, secagg: dict, live: dict, chaos: dict,
-                drivers: dict):
+                protocol: dict, drivers: dict):
     """The kernels line's rows of B3a-B3d: launches on the main paths by
     phase (the crypto intake, secagg's armed intakes, the rounds of live
-    (b), (d) and (e) and of chaos (a) beyond the peers' prewarms, drivers
-    (c)'s msm), and the times and
+    (b), (d) and (e), of chaos (a) and of protocol (a) and (b) beyond the
+    peers' prewarms, drivers (c)'s msm), and the times and
     bound at the shape the settle gives each (B3a's 8,192 lanes, B3b's
     Pedersen comb at 1 x 512, B3c's verdicts of 64 x 7,850 cells, the
     instance `grid_sum` runs, B3d's ext_add of 7,850 pairs), the other
-    shapes under `at` (B3c's with the points among them)."""
+    shapes under `at` (B3c's with the points among them, and protocol's:
+    (a)'s msm, tree and fold, (b)'s keyed Pedersen comb)."""
     rows = []
     for kid, (_, wrapper, replaces) in LADDER.items():
         by_phase = {"crypto": crypto["b3_launches"][wrapper],
                     "secagg": secagg["b3_launches"][wrapper],
                     "live": live["b3_launches"][wrapper],
                     "chaos": chaos["b3_launches"][wrapper],
+                    "protocol": protocol["b3_launches"][wrapper],
                     "drivers": drivers["b3_crypto_kernel"][wrapper]}
         timed = crypto["ladder"][kid]
         main = timed[-1] if kid == "B3b" else timed[0]
+        timed = timed + [protocol["shapes"][kid]]
         rows.append({
             "name": f"ed25519_{wrapper}", "id": kid, "route": "cuda",
             "source": "biscotti_tpu_torch/csrc/ed25519_ladder.cu",
@@ -3716,6 +4184,10 @@ def main() -> int:
     # chaos: the chaos CLI's fault, overload, churn and campaign planes ----
     chaos = chaos_phase(secagg["b3_launches_prewarm"])
 
+    # protocol: the keyed and CNN-width secure aggregation armed, codecs --
+    protocol = protocol_phase(dev, ladder, oncurve_sass,
+                              secagg["b3_launches_prewarm"])
+
     # hive: slice 7, co-hosted port peers on the card -----------------------
     hive = hive_phase(dev)
 
@@ -3771,16 +4243,23 @@ def main() -> int:
         "replaces": "biscotti_tpu/crypto/kernels/pallas_validate.py:34",
         "launches": (crypto["oncurve_launches"] + secagg["b2_launches"]
                      + live["b2_launches"] + chaos["b2_launches"]
+                     + protocol["b2_launches"]
                      + drivers["b2_crypto_kernel"]),
         "launches_by_phase": {"crypto": crypto["oncurve_launches"],
                               "secagg": secagg["b2_launches"],
                               "live": live["b2_launches"],
                               "chaos": chaos["b2_launches"],
+                              "protocol": protocol["b2_launches"],
                               "drivers": drivers["b2_crypto_kernel"]},
-        "max_abs_err": b2["max_abs_err"],
+        "max_abs_err": max(b2["max_abs_err"],
+                           protocol["shapes"]["B2"]["max_abs_err"]),
         "ms": b2["ms"], "plain_ms": b2["plain_ms"],
         "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],
-        "library_ms": None}] + ladder_line(crypto, secagg, live, chaos, drivers)}),
+        "library_ms": None,
+        "at_the_cifar_cnn_fold": {k: protocol["shapes"]["B2"][k] for k in (
+            "shape", "ms", "kernel_only_ms", "plain_ms", "bound_ms",
+            "bound_by")}}] + ladder_line(crypto, secagg, live, chaos,
+                                          protocol, drivers)}),
         flush=True)
     print(smi, flush=True)  # the card's name and power limit, verbatim
     print(json.dumps({"ok": True, "device": {

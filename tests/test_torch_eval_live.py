@@ -86,10 +86,33 @@ def test_scale_test_cli_runs_a_port_cluster(tmp_path, capsys):
     assert len(rows) == 2 and all(len(r.split(",")) == 3 for r in rows)
 
 
+def _recorded_agents(monkeypatch, driver) -> list:
+    """Every PeerAgent `driver` builds while the test runs, in order."""
+    agents = []
+
+    class Recorded(peer.PeerAgent):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            agents.append(self)
+
+    monkeypatch.setattr(driver, "PeerAgent", Recorded)
+    return agents
+
+
 # ---------------------------------------------------- eval_cost_breakdown
 
 
-def test_cost_breakdown_cli_with_a_device_trace(tmp_path, capsys):
+def test_cost_breakdown_cli_with_a_device_trace(tmp_path, capsys,
+                                                monkeypatch):
+    """The cost-breakdown CLI's artifact on a 4-peer cluster. Its sgd
+    calls are the steps the rounds' workers took: each round's committees,
+    elected from the chain's head, can seat all 4 peers (3 verifiers and 3
+    miners overlap), and which round does follows the block hash's bits,
+    so the count is held to the workers the run's own chain elects and to
+    the records its blocks carry, not to a fixed number."""
+    from biscotti_tpu_torch.parallel import roles
+
+    agents = _recorded_agents(monkeypatch, eval_cost_breakdown)
     trace = tmp_path / "trace"
     rc = eval_cost_breakdown.main([
         "--nodes", "4", "--iterations", "2", "--base-port", "17520",
@@ -103,7 +126,15 @@ def test_cost_breakdown_cli_with_a_device_trace(tmp_path, capsys):
         "miner_crypto_components", "phase_quantiles", "wire", "device_trace"}
     assert set(summary["miner_crypto_components"]) == {
         "commitment_verify_s", "signature_check_s", "share_interpolation_s"}
-    assert summary["phases"]["sgd"]["calls"] >= 2
+    c, chain = agents[0].cfg, agents[0].chain
+    workers = 0
+    for head in chain.blocks[:-1]:  # the committees each round elected
+        v, m = roles.elect_committees(dict(head.stake_map), head.hash,
+                                      c.num_verifiers, c.num_miners,
+                                      c.num_nodes)
+        workers += c.num_nodes - len(set(v) | set(m))
+    accepted = sum(u.accepted for b in chain.blocks for u in b.data.deltas)
+    assert 1 <= accepted <= summary["phases"]["sgd"]["calls"] <= workers
     assert (trace / "trace.json").exists()
     csv = (tmp_path / "cost_breakdown.csv").read_text().splitlines()
     assert csv[0] == "phase,total_s,calls,s_per_call"
@@ -191,11 +222,22 @@ def test_attack_matrix_cli_runs_one_live_cell(tmp_path, capsys, monkeypatch):
     reference's (6 s updates), which a cold first `sgd` under a loaded
     test run can miss, leaving every block empty; the test gives its cell
     windows under which no peer misses a round (the cells' configs are held
-    to the reference's above)."""
+    to the reference's above).
+
+    At 5 peers with 3 verifiers and 1 miner a round samples one worker
+    (`num_samples`) while two train, every verifier pools the first update
+    to arrive and refuses the other, and the leader mints once one worker
+    is accounted for: the refused worker's signed decline can reach it
+    before the approved worker's shares, and that round's block is empty
+    (ROADMAP C13, the reference's rule). The settled prefix of a 2-round
+    run is round 0 alone, so `real_blocks` reads that race; the test holds
+    the run to a real block on every peer's whole chain instead, and each
+    empty block to a round whose refused worker declined."""
     from biscotti_tpu_torch.config import Timeouts
 
     monkeypatch.setattr(eval_attack_matrix, "Timeouts", lambda **kw: Timeouts(
         update_s=20.0, block_s=60.0, krum_s=20.0, share_s=20.0, rpc_s=20.0))
+    agents = _recorded_agents(monkeypatch, eval_attack_matrix)
     rc = eval_attack_matrix.main([
         "--nodes", "5", "--rounds", "2", "--quick", "--campaigns", "hug",
         "--defenses", "KRUM", "--base-port", "17560", "--platform", "cpu",
@@ -205,7 +247,18 @@ def test_attack_matrix_cli_runs_one_live_cell(tmp_path, capsys, monkeypatch):
     (row,) = art["rows"]
     assert (row["campaign"], row["defense"], row["secure_agg"]) == \
         ("hug", "KRUM", True)
-    assert row["chains_equal"] and row["real_blocks"] >= 1
+    assert row["chains_equal"]
+    # every peer ran both rounds and holds the same whole chain
+    assert len(agents) == 5 and all(a.iteration == 2 for a in agents)
+    assert len({a.chain.dump() for a in agents}) == 1
+    blocks = agents[0].chain.blocks[1:]
+    assert any(not b.is_empty() for b in blocks)
+    declined = {e["iter"] for a in agents for e in a.tele.recorder.tail(4096)
+                if e["event"] == "update_rejected"}
+    for b in blocks:
+        assert not b.is_empty() or b.data.iteration in declined, \
+            f"round {b.data.iteration}'s block is empty and no worker declined"
+    assert row["real_blocks"] == sum(not b.is_empty() for b in blocks[:1])
     assert row["failed"] == (0 if row["survived"] else 1)
     assert row["replay"].startswith("python -m biscotti_tpu_torch.tools.chaos")
     assert {"experiment", "device", "nvidia_smi", "dataset", "nodes",

@@ -21,8 +21,8 @@ import numpy as np
 import pytest
 
 from torch_twins import (PACKAGES, PORT, REF, assert_first_block_parity, cfg,
-                         inject_reference_draws, reference_draws, run_cluster,
-                         twin, warm)
+                         inject_reference_draws, outcome, reference_draws,
+                         run_cluster, twin, warm)
 
 pytestmark = pytest.mark.placement
 
@@ -95,6 +95,10 @@ def _restore(pkg, port, secure, donor, ticket):
         adm = fresh.admission.export_state()
         assert adm["shed_counts"].get("update_rate", 0) >= 5
         assert adm["inflight_peak"] >= 7
+        # the donor's own tallies, whatever its run shed before the move
+        was = donor.admission.export_state()
+        assert adm["shed_counts"] == was["shed_counts"]
+        assert adm["inflight_peak"] == was["inflight_peak"]
         assert fresh.membership_epoch == 4
         assert np.array_equal(fresh._ef_residual, donor._ef_residual)
         assert fresh.counters.get("migration_restored") == 1
@@ -127,7 +131,21 @@ def test_ticket_roundtrip_state_survives_move(secure, port):
     (ref_meta, ref_arrays), (meta, arrays) = (got[k][2]
                                               for k in ("reference", "port"))
     assert sorted(meta) == sorted(ref_meta)
-    assert sorted(arrays) == sorted(ref_arrays)
+    # the arrays name each record of the donor's chain (`b<h>.d<j>.delta`),
+    # so each package's keys are what the other's chain codec gives for
+    # that donor's own chain; the two runs' key sets are equal where their
+    # chains carry the same records (a plain-mode run parts after round 0,
+    # ROADMAP C10, and a worker that misses a window parts either mode,
+    # C14)
+    for (m, a), other in (((meta, arrays), REF), ((ref_meta, ref_arrays),
+                                                  PORT)):
+        chain_keys = {k for k in a if k != "__ef_residual__"}
+        blocks = other.wire.unpack_chain(m["chain_meta"],
+                                         {k: a[k] for k in chain_keys})
+        assert set(other.wire.pack_chain(blocks)[1]) == chain_keys
+        assert set(a) - chain_keys == {"__ef_residual__"}
+    if outcome(got["reference"][1][1]) == outcome(got["port"][1][1]):
+        assert sorted(arrays) == sorted(ref_arrays)
     # a ticket of either package restores an agent of the other
     for src, dst, wire in (("port", REF, (meta, arrays)),
                            ("reference", PORT, (ref_meta, ref_arrays))):

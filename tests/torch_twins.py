@@ -1,8 +1,10 @@
 """Shared harness of the live twins (`tests/test_torch_byzantine.py`,
 `_pipeline_live`, `_fault_injection`, `_partition`, `_upgrade`,
 `_membership_live`, `_late_joiner`, `_stragglers_live`, `_faults_live`,
-`_admission_live`, `_adversary_live`, `_tracing_live`, `_placement_live`
-and `_churn_live`): one scenario
+`_admission_live`, `_adversary_live`, `_tracing_live`, `_placement_live`,
+`_churn_live`, `_runtime_live`, `_dkg_live`, `_checkpoint_live`,
+`_codecs_live`, `_telemetry_live`, `_defaults_live` and
+`_pod_launch_live`): one scenario
 of a reference live test runs twice on one seed, once on the reference's
 `PeerAgent`s and once on the port's (`device="cpu"`), both built from
 the same config keywords. Each test then makes the reference test's own
@@ -45,7 +47,9 @@ MODULES = {
     "placement": "runtime.placement", "hive": "runtime.hive",
     "messages": "runtime.messages", "telemetry": "telemetry",
     "tracectx": "telemetry.tracectx", "registry": "telemetry.registry",
-    "trace_round": "tools.trace_round",
+    "trace_round": "tools.trace_round", "keygen": "tools.keygen",
+    "codecs": "runtime.codecs", "checkpoint": "utils.checkpoint",
+    "stragglers": "runtime.stragglers", "trust": "ops.trust",
 }
 
 
@@ -103,22 +107,30 @@ def reference_draws(agents) -> dict:
     return {a.id: a.trainer for a in agents}
 
 
-_WARM = set()  # (package, dataset) whose step has run in this process
+_WARM = set()  # (package, dataset, model) whose step has run here, and
+# (package, "vss") once its first commitment has
 
 
 def warm(pkg, c) -> None:
     """One step and one test error of a throwaway Trainer of `c`'s
-    dataset, once a process: the first step pays jax's compile or torch's
-    first calls, which a live round's windows must not absorb in one
-    package and not in the other."""
-    if (pkg.name, c.dataset) in _WARM:
+    dataset and model, once a process: the first step pays jax's compile
+    or torch's first calls, which a live round's windows must not absorb
+    in one package and not in the other. Where the peers commit (secure
+    aggregation, verification), one commitment too: a process's first
+    loads the native EC plane and its fixed-base tables (~1 s alone, more
+    than a 6 s update window under a loaded test run)."""
+    if (c.secure_agg or c.verification) and (pkg.name, "vss") not in _WARM:
+        pkg.cm.vss_commit_chunks_bytes(np.zeros((1, c.poly_size), np.int64),
+                                       bytes(32), b"warm")
+        _WARM.add((pkg.name, "vss"))
+    if (pkg.name, c.dataset, c.model_name) in _WARM:
         return
     t = pkg.trainer.Trainer(c.dataset, f"{c.dataset}0", cfg=c, seed=0,
                             **pkg.agent_kw)
     w = np.zeros(t.num_params)
     t.private_fun(w, 0)
     t.test_error(w)
-    _WARM.add((pkg.name, c.dataset))
+    _WARM.add((pkg.name, c.dataset, c.model_name))
 
 
 def agent(pkg, c, cls=None, draws=None, **kw):
@@ -279,3 +291,66 @@ def assert_same_dumps(ref, port):
     assert all(d == port[0] for d in port), "chain-equality oracle violated"
     assert port[0] == ref[0], \
         f"port chain\n{port[0]}\n!= reference chain\n{ref[0]}"
+
+
+def round_pools(results, it: int = 0) -> list:
+    """Round `it`'s verifier decisions of a run: each pool's sorted source
+    ids, from the peers' verdict streams (recorded under every defense)."""
+    return sorted(sorted(int(x) for x in v["src"]) for r in results
+                  for v in r["telemetry"].get("trust", {}).get("stream", [])
+                  if int(v["it"]) == it)
+
+
+def declined_rounds(agents) -> set:
+    """The rounds in which a worker of `agents` declined: every verifier it
+    asked refused it or failed. Where a round has more workers than
+    samples, a verifier pools the first to arrive and refuses the rest
+    (ROADMAP C8), so which workers such a round carries follows arrival
+    order."""
+    return {e["iter"] for a in agents for e in a.tele.recorder.tail(4096)
+            if e["event"] == "update_rejected"}
+
+
+def assert_same_chain_where_pooled_alike(ref, port, min_rounds=1):
+    """`ref` and `port` each (results, agents) of a secure-aggregation run:
+    each run's chain dumps equal, and the two chains bit for bit, block by
+    block, up to the first round whose members differ. A round may carry
+    other members only where a worker declined in it, in either run (C8),
+    and a block on the same members may part only by a quantum or so in a
+    few coordinates (C10); the blocks after it follow another chain and
+    are held to the stake rule. At least `min_rounds` blocks must be
+    compared bit for bit."""
+    ref_dumps, port_dumps = (dumps(*run) for run in (ref, port))
+    for d in (ref_dumps, port_dumps):
+        assert all(x == d[0] for x in d), "chain-equality oracle violated"
+    ref_lines = ref_dumps[0].splitlines()[1:]
+    port_lines = port_dumps[0].splitlines()[1:]
+    ref_blocks = outcome(ref[1][0])["blocks"]
+    port_blocks = outcome(port[1][0])["blocks"]
+    raced = declined_rounds(ref[1]) | declined_rounds(port[1])
+    compared = 0
+    for r, (a, b) in enumerate(zip(ref_blocks, port_blocks)):
+        if a != b:
+            assert a[0] in raced, \
+                f"round {a[0]} carried {b[1]}, the reference {a[1]}, and " \
+                f"no worker declined in it"
+            break
+        if port_lines[r] != ref_lines[r]:
+            # the same members, and a sum off by a quantum or so in a few
+            # coordinates: a worker's delta sat within a float32 rounding
+            # of a 10^-precision step, where the frameworks' products round
+            # apart (ROADMAP C10); the chains part from here
+            w_ref, w_port = (run[1][0].chain.blocks[r + 1].data.global_w
+                             for run in (ref, port))
+            quantum = 10.0 ** -ref[1][0].cfg.precision
+            off = np.abs(np.asarray(w_port) - np.asarray(w_ref))
+            assert off.max() <= len(a[1]) * quantum * (1 + 1e-6) \
+                and np.count_nonzero(off) <= max(1, off.size // 1000), \
+                f"round {a[0]}: port block {port_lines[r]} != reference " \
+                f"{ref_lines[r]} on the same members, off by up to " \
+                f"{off.max()} in {np.count_nonzero(off)} coordinates"
+            break
+        compared += 1
+    assert compared >= min_rounds, (compared, ref_blocks, port_blocks)
+    for run in (ref, port):
+        assert outcome(run[1][0])["stake"] == stake_from_records(run[1][0])
