@@ -128,7 +128,7 @@ printed as one JSON line:
               softmax and mnist_cnn), one private_fun's time, and mcmc13
               Trainers at d = 7,850 and 164,266: acceptance rate, mean row
               norm against the law's 2d/ε (within 1 %), presample time;
-  ledger      the ledger and wire plane on the card's own rounds: 5 rounds
+  ledger      the ledger and wire plane on the card's own rounds: 3 rounds
               of the main configuration, each sealed into a Block (global_w
               on the f32 grid, the card's stakes, one secure-agg Update for
               each accepted contributor: an empty delta and the SHA-256 of its
@@ -250,6 +250,63 @@ printed as one JSON line:
               at (b)'s keyed Pedersen comb, the inputs the rounds gave
               them (`KernelInputs`), each against its plain version, timed
               through its wrapper, alone and plain, beside its bound;
+  acceptance  the reference's slow acceptance drills (its tests marked
+              `slow` that start a cluster), each as its test builds it
+              (peers, roles, rounds, seeds, fault plans, windows, flags)
+              and gated by its assertions, on the card and at the mnist
+              softmax width (d = 7,850; the reference ran all but (d) on
+              creditcard): (a) the device cluster's bit-identity guard
+              (test_crypto_kernels.py:618): 5 peers, secure aggregation
+              and verification, no defense, pipelined with batched
+              intake, one round, a share corrupter (the highest id off
+              round 0's committees), run on the native plane and then
+              armed (`crypto_switch(arm=True)`), paired as `live` (b)
+              until the two pooled alike (up to ACCEPT_GUARD_PAIRS): each
+              run's honest chains equal and the two runs' chains, sorted
+              `submission_rejected` evidence (id, source, reason) and
+              stakes equal, the evidence not empty, the corrupter below
+              its genesis stake, B2 and B3c in the armed run's grid folds
+              and B3a, B3b and B3d in its settles (beyond the prewarms);
+              (b) two port Hives of 50 (test_hive.py:353), 3 rounds,
+              FaultPlan seed 23 (2 % drops, 10 % of frames delayed, 5 %
+              churn every 2 rounds): 100 results, the surviving-prefix
+              oracle equal with a settled block, faults injected,
+              loopback RPCs, then one batch of the first hive's stepper
+              (device ms) and the RSS a peer; (c), run only when named
+              (`python3 chip_smoke.py acceptance c`: on the card round
+              0, the settled prefix of its 2 rounds, mints empty under
+              the reference's rules, the genesis announce of 100 peers
+              on one event loop and a refused worker's decline counting
+              as accounted, ROADMAP C16), the rebalance of
+              test_placement.py:377: N = 100 on two hosts' LoopbackHubs
+              through the PlacementController, secure aggregation,
+              noising and verification, 20 % sampled, the reference's
+              rigged host signals: the prefix equal with a real block, 2
+              or more moves, each host0 -> host1, each moved peer
+              migrated and restored, all 100 stakes at or above the
+              default, and round 0's event times (`round_events`); (d)
+              the slow fleet of test_stragglers.py:522: 10
+              peers, the tee preset on the 2 the reference's seed scan
+              picks, secure aggregation and verification, batch 10,
+              adaptive deadlines (floor 1 s), 5 rounds: a real block in
+              2 of a common prefix of 3, no breaker open toward and no
+              debit of a tee peer, `tools.obs`'s merge with 2 slow and 10
+              adaptive peers and a table with `stragglers:` and
+              `waiting-on`; (e) the churn verdict of
+              test_membership.py:658: 8 peers, 2 miners, 12 rounds, 30 %
+              poisoners under FOOLSGOLD, churn seed 15 (20 % a period of
+              6 rounds, 2 down) through a snapshot-bootstrapped
+              ChurnRunner, then the plain run: both prefixes equal with a
+              real block, half the rounds settled under churn, the
+              schedule replayed, and the settled defense verdict
+              (`tools.verdicts`) the plain run's; (f) the rolling upgrade
+              of test_upgrade.py:116 through the chaos CLI (8 peers, 8
+              rounds, from version 0, waves of 3 every 2 rounds, secure
+              aggregation, f32+zlib): rc 0, waves at rounds 2, 4 and 6,
+              7 upgrades applied, every final version the current one,
+              the prefix equal with a real block. Each cell's line: its
+              seconds, each round's wall time, the rounds reached, real
+              blocks, the oracle's values and every kernel's launches;
   hive        co-hosted port peers on the card, one process, loopback
               transport, one batched SGD call a round (runtime/hive.py):
               (a) the reference's density entry at N = 100 (bench.py:452)
@@ -257,7 +314,7 @@ printed as one JSON line:
               biscotti_tpu_torch.runtime.hive -t 100 -d mnist --iterations
               2 -sa 0 -np 0 -vp 1 --seed 3` (d = 7,850): s/iter, peak RSS
               per peer, loop lag, stepper batches, chains equal; (b) a Hive
-              of 100 mnist_cnn peers (d = 164,266), KRUM, 2 rounds, then one
+              of 100 mnist_cnn peers (d = 164,266), KRUM, 1 round, then one
               HiveStepper batch at the final weights: its draws' host ms,
               its time (CUDA events) and torch.profiler's device ms and
               kernel count, every peer's delta held to its standalone
@@ -277,7 +334,7 @@ printed as one JSON line:
               every n against the plain path (accept sets equal, rtol
               1e-4), the kernel alone, the wrapper, the plain path and the
               cuBLAS Gram timed and the bound; (b) `eval.eval_sim_scale` at
-              N = 100, 256, 512, 1024 (mnist softmax, 10 rounds): s/iter,
+              N = 100, 256, 512, 1024 (mnist softmax, 5 rounds): s/iter,
               the scan's device ms and idle share, B1 once a round at
               N = 1024 (S = 716) and never below; (c) the bench's
               crypto-kernel entry at widths 8, 35, 100, the card's msm =
@@ -318,15 +375,17 @@ printed as one JSON line:
               of 20, each ending in a synchronize); B1 launches 0 (S = 16
               lies below B1's window, as in the reference);
   6. kernels  one line for every ported kernel (B1's launches from phases
-              4, defenses, cnn, ledger, hive (c), drivers (a) and (b) and
-              mesh (a) and (b), with its times at (716, 164266), at the
-              hive's live pool, at the mesh's gathered pools and at each
-              committee size of drivers (a) beside those at (716, 7850);
-              B2's from the crypto and secagg phases' intakes, the live
-              miners' folds, chaos (a), protocol (a) and (b) and drivers
+              4, defenses, cnn, ledger, acceptance (0: every pool under
+              512), hive (c), drivers (a) and (b) and mesh (a) and (b),
+              with its times at (716, 164266), at the hive's live pool, at
+              the mesh's gathered pools and at each committee size of
+              drivers (a) beside those at (716, 7850); B2's from the
+              crypto and secagg phases' intakes, the live miners' folds,
+              chaos (a), protocol (a) and (b), acceptance (a) and drivers
               (c); B3a-B3d's from the crypto and secagg intakes, the
               rounds of live (b), (d) and (e), of chaos (a), of protocol
-              (a) and (b) and drivers (c), each with its times and bound
+              (a) and (b), of acceptance (a) and drivers (c), each with
+              its times and bound
               at the settle's shape and, under `at`, the protocol
               phase's).
 
@@ -334,6 +393,10 @@ Then the card's `name, power.limit` line as nvidia-smi prints it (the line
 the run's records are keyed by) and, last, the device JSON. Any
 failed check raises, and the script exits non-zero without the last line;
 with no CUDA device it exits 1 at once.
+
+`python3 chip_smoke.py acceptance [CELLS]` builds the libraries and runs
+the acceptance phase alone, its default cells or the letters named (then
+its launches and the nvidia-smi line).
 """
 
 from __future__ import annotations
@@ -435,7 +498,7 @@ EXACT_SLACK = 1.1
 CHUNKS, POLY = 785, 10  # C chunks of k coefficients: d = 7,850
 WAVE = 35  # num_samples // 2 grids a wave (bench.py:272)
 SHARES = 15  # share points of the Shamir recovery timing
-LEDGER_ROUNDS = 5
+LEDGER_ROUNDS = 3  # of 5 until the acceptance phase needed the time
 # S of the bench's mnist_cnn rows at N = 100 (bench.py:849-858): the
 # accepted updates a plain-mode mnist_cnn block carries in the ledger phase
 LEDGER_CNN_ROWS = 70
@@ -474,7 +537,9 @@ CHAOS_CHURN_SEED = 14  # a JOIN, a KILL and a RESTART at 5 peers, 8 rounds
 CHAOS_CELL_S = 60.0  # each cell's budget
 # (a): the flooder's rounds 1 and 2 each wait out the CLI's armed block
 # window (75 s) before their empty fallback block (ROADMAP C12), so its
-# bound is the cell's budget and those two windows; a third stall fails
+# bound is the cell's budget and those two windows; a third stall fails.
+# 2 rounds would not do: round 0's block is empty under the flood, and
+# round 0 alone is the settled prefix of 2 rounds
 CHAOS_A_STALLS = 2
 CHAOS_A_FLAGS = [
     "--rounds", "3", "--secure-agg", "1", "--verification", "1",
@@ -503,8 +568,45 @@ PROTOCOL_KEYED_PARAMS = 7_850
 PROTOCOL_KEY_SEED = 5  # generate_dkg's ceremony seed (test_dkg.py:248)
 PROTOCOL_CODECS = ("raw64", "f32+zlib")
 PROTOCOL_GOSSIP_X = 3.0  # test_wire_codecs.py:368
+# acceptance: the reference's slow acceptance drills (ROADMAP C11, "The
+# slow C11 rows" 2-7), each as its test builds it, on the card and at the
+# mnist softmax width (the reference ran all but the slow fleet on
+# creditcard): (a) the device cluster's bit-identity guard, armed, beside
+# its native run until the two pooled alike (C8), (b) two hives of 50
+# under drops and churn, (c) the rebalance at N = 100, (d) the slow
+# fleet, (e) the churn verdict, (f) the rolling upgrade through the chaos
+# CLI. Each drill's windows are its reference file's Timeouts; (c)'s go
+# through Timeouts.scaled, which at N = 100 and one-member committees
+# keeps them
+ACCEPT_BASE_PORT = 20000
+# the cells the phase runs: (c) stays out, since on the card its round 0
+# mints empty under the reference's rules (ROADMAP C16); `python3
+# chip_smoke.py acceptance c` runs it with its gates
+ACCEPT_CELLS = "abdef"
+ACCEPT_GUARD_PEERS = 5
+ACCEPT_GUARD_PAIRS = 4
+ACCEPT_HIVES_N = 100
+ACCEPT_REBALANCE_N = 100
+ACCEPT_FLEET_N = 10
+ACCEPT_CHURN_N = 8
+ACCEPT_CHURN_ROUNDS = 12
+ACCEPT_WINDOWS = {
+    "guard": dict(update_s=25.0, block_s=90.0, krum_s=20.0, share_s=25.0,
+                  rpc_s=25.0),
+    "two_hives": dict(update_s=8.0, block_s=40.0, krum_s=8.0, share_s=8.0,
+                      rpc_s=10.0),
+    "rebalance": dict(update_s=5.0, block_s=20.0, krum_s=4.0, share_s=5.0,
+                      rpc_s=6.0),
+    "slow_fleet": dict(update_s=20.0, block_s=45.0, krum_s=6.0,
+                       share_s=20.0, rpc_s=8.0),
+    "churn_verdict": dict(update_s=5.0, block_s=15.0, krum_s=3.0,
+                          share_s=5.0, rpc_s=4.0)}
+ACCEPT_UPGRADE_FLAGS = [
+    "--rounds", "8", "--rolling-upgrade", "0", "--upgrade-period", "2",
+    "--upgrade-wave", "3", "--secure-agg", "1", "--codec", "f32+zlib"]
 HIVE_DENSITY_N = 100
 HIVE_CNN_N = 100
+HIVE_CNN_ROUNDS = 1  # of 2 until the acceptance phase needed the time
 HIVE_POOL_N = 528
 HIVE_POOL_ROUNDS = 1
 HIVE_CLUSTER_N = 8
@@ -520,7 +622,7 @@ HIVE_BASE_PORT = 18000
 DRIVER_KRUM_SIZES = (128, 256, 512, 1024, 2048, 4096, 8192)
 DRIVER_KRUM_D = 7850
 DRIVER_SIM_SIZES = (100, 256, 512, 1024)
-DRIVER_SIM_ROUNDS = 10
+DRIVER_SIM_ROUNDS = 5  # of 10 until the acceptance phase needed the time
 DRIVER_MSM_WIDTHS = (8, 35, 100)
 DRIVER_MIGRATION_N = 100
 DRIVER_LOCAL_PEERS = 4
@@ -2140,19 +2242,37 @@ def free_base(port: int, n: int) -> int:
     machine's ephemeral range reaches into the live and hive clusters'
     ports, and an outbound socket of an earlier cluster in this process can
     hold one past RPCServer.start's retry window (17526 once, after live
-    (b)'s 7-peer rounds; 18082 once, at hive (b))."""
+    (b)'s 7-peer rounds; 18082 once, at hive (b)). Right after the two
+    hives of 50, whose thousands of connections span that range, a scan
+    once found no run of 100 bindable ports from 20300 up, so the scan is
+    made again each second for up to 90 s; a window holding a port that
+    cannot bind is skipped past that port."""
     import socket
 
-    for base in range(port, 65536 - n):
-        try:
-            for p in range(base, base + n):
-                with socket.socket() as s:
-                    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-                    s.bind(("127.0.0.1", p))
-        except OSError:
-            continue
-        return base
-    raise AssertionError(f"no {n} free ports from {port} up")
+    def bindable(p: int) -> bool:
+        with socket.socket() as s:
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            try:
+                s.bind(("127.0.0.1", p))
+            except OSError as e:
+                nonlocal err
+                err = e
+                return False
+        return True
+
+    deadline = time.monotonic() + 90.0
+    while True:
+        err, base = None, port
+        while base + n <= 65536:
+            held = next((p for p in range(base, base + n)
+                         if not bindable(p)), None)
+            if held is None:
+                return base
+            base = held + 1
+        if time.monotonic() > deadline:
+            raise AssertionError(f"no {n} free ports from {port} up: "
+                                 f"{err!r}")
+        time.sleep(1.0)
 
 
 def live_cluster(name: str, port: int, timeouts: dict, peers: int,
@@ -2201,12 +2321,7 @@ def live_cluster(name: str, port: int, timeouts: dict, peers: int,
     anchor = agents[honest[0]]
     dumps = [results[i]["chain_dump"] for i in honest]
     blocks = dumps[0].splitlines()[1:]
-    stamps = [float(line.split(",")[2])
-              for line in results[honest[0]]["logs"]]
-    phases: dict = {}
-    for r in results:
-        for ph, v in r["phases"].items():
-            phases[ph] = phases.get(ph, 0.0) + v["total_s"]
+    stamps = log_stamps(results[honest[0]])
     stream = sorted((int(v["it"]), [int(x) for x in v["src"]],
                      [bool(x) for x in v["accept"]])
                     for r in results
@@ -2223,10 +2338,10 @@ def live_cluster(name: str, port: int, timeouts: dict, peers: int,
            "rounds": len(blocks), "rounds_wanted": cfgs[0].max_iterations,
            "nonempty_blocks": sum("ndeltas=0" not in b for b in blocks),
            "verdicts": verdicts,
-           "round_wall_s": [b - a for a, b in zip([t0] + stamps, stamps)],
+           "round_wall_s": round_walls(t0, stamps),
            "run_s": run_s, "setup_and_run_s": time.perf_counter() - t_setup,
            "final_error": results[0]["final_error"],
-           "phases_total_s": {k: round(v, 4) for k, v in sorted(phases.items())},
+           "phases_total_s": summed_phases(results),
            "chain": blocks,
            # what each round decided, to tell two chains' first difference
            # apart: the verifiers' pools and accept masks, each block's
@@ -2246,7 +2361,14 @@ def live_cluster(name: str, port: int, timeouts: dict, peers: int,
         commitment_lengths=sorted({len(u.commitment) for u in records
                                    if u.accepted}),
         keyed_peers=sum(a.commit_key is not None for a in agents),
-        gossip_bytes_out=gossip_bytes(results))
+        gossip_bytes_out=gossip_bytes(results),
+        # each honest peer's submission_rejected events, as the reference's
+        # device-cluster guard reads them (test_crypto_kernels.py:679-683)
+        rejection_evidence=sorted(
+            [a.id, ev.get("source"), ev.get("reason")]
+            for a in agents if a.id in honest
+            for ev in a.tele.recorder.tail(100000)
+            if ev.get("event") == "submission_rejected"))
     if not (row["chains_equal"] and row["rounds"] == row["rounds_wanted"]
             and row["nonempty_blocks"] >= 1
             and row["devices"] == ["cuda:0"]):
@@ -2423,7 +2545,7 @@ class IntakeVerdicts:
 
 
 def armed_cluster(name: str, port: int, prewarm_b3: dict, peers: int,
-                  **kw) -> dict:
+                  timeouts: dict = LIVE_ARMED, **kw) -> dict:
     """live_cluster with the device plane armed on the card and
     BISCOTTI_PALLAS_CRYPTO=1 (B2 once a miner's fold); the row gains B2's
     launches, B3's beyond the peers' prewarms and the plane's calls."""
@@ -2431,8 +2553,8 @@ def armed_cluster(name: str, port: int, prewarm_b3: dict, peers: int,
     from biscotti_tpu_torch.crypto.kernels import cuda_ladder as cl
     from biscotti_tpu_torch.crypto.kernels import cuda_validate as cv
 
-    with crypto_switch():
-        row = live_cluster(name, port, LIVE_ARMED, peers, device_crypto=True,
+    with crypto_switch(arm=True):
+        row = live_cluster(name, port, timeouts, peers, device_crypto=True,
                            **kw)
         row["b2_launches"] = cv.oncurve_mask.launches
         row["b3_launches"] = cl.launches()
@@ -2464,10 +2586,12 @@ def armed_launch_gates(row: dict) -> None:
 
 def armed_pair(name: str, witness: str, ports: tuple, prewarm_b3: dict,
                budget: int, checks=None, peers: int = LIVE_PEERS,
-               phase: str = "live", gates=None, **kw) -> tuple:
+               phase: str = "live", gates=None, timeouts=None,
+               **kw) -> tuple:
     """(witness, armed): a cluster of `peers` run on the native host
     plane and then armed (armed_cluster), pair after pair until a pair
-    pooled the same workers in every round, up to `budget` pairs. A
+    pooled the same workers in every round, up to `budget` pairs; both
+    runs take `timeouts` where given (else LIVE_FAST and LIVE_ARMED). A
     verifier pools the first krum_update_thresh updates to arrive (the
     reference's main.go:680-684, ROADMAP C8), so two runs of one cluster,
     on either plane, can pool other workers. Every armed run is held to
@@ -2478,9 +2602,10 @@ def armed_pair(name: str, witness: str, ports: tuple, prewarm_b3: dict,
     plane that refused a valid grid, or passed everything, would part
     them."""
     for pair in range(budget):
-        w = live_cluster(witness, ports[0], LIVE_FAST, peers, **kw)
+        w = live_cluster(witness, ports[0], timeouts or LIVE_FAST, peers, **kw)
         emit(phase, pair=pair, **w)
-        row = armed_cluster(name, ports[1], prewarm_b3, peers, **kw)
+        row = armed_cluster(name, ports[1], prewarm_b3, peers,
+                            timeouts or LIVE_ARMED, **kw)
         row["pair"] = pair
         row["pools_equal_witness"] = pooled(row) == pooled(w)
         row["chain_equals_witness"] = row["chain"] == w["chain"]
@@ -3127,12 +3252,12 @@ def warm_cell(cfg) -> None:
                                bytes(32), b"warm")
 
 
-def protocol_armed_gates(row: dict) -> None:
+def armed_walk_gates(row: dict) -> None:
     """armed_launch_gates, and B3b's launches beyond the prewarms too."""
     armed_launch_gates(row)
     if row["b3_round_launches"]["fixed_walk"] < 1:
-        raise AssertionError(f"protocol {row['cluster']}'s rounds did not "
-                             f"launch B3b: {row['b3_round_launches']}")
+        raise AssertionError(f"{row['cluster']}'s rounds did not launch "
+                             f"B3b: {row['b3_round_launches']}")
 
 
 def protocol_phase(dev, ladder: dict, mix, prewarm_b3: dict) -> dict:
@@ -3173,7 +3298,7 @@ def protocol_phase(dev, ladder: dict, mix, prewarm_b3: dict) -> dict:
     with KernelInputs() as cnn_inputs:
         aw, a = armed_pair("a_cnn_secagg_armed", "a_cnn_witness_native",
                            (PROTOCOL_BASE_PORT, PROTOCOL_BASE_PORT + 10),
-                           prewarm_cnn, PROTOCOL_PAIRS, protocol_armed_gates,
+                           prewarm_cnn, PROTOCOL_PAIRS, armed_walk_gates,
                            phase="protocol", **a_kw)
     witness_gates(a, aw)
     if a["params"] != PROTOCOL_CNN_PARAMS:
@@ -3270,6 +3395,530 @@ def protocol_phase(dev, ladder: dict, mix, prewarm_b3: dict) -> dict:
             "seconds": time.perf_counter() - t_phase}
 
 
+def drill_cfg(i: int, n: int, port: int, drill: str, **kw):
+    """The `_cfg` of the reference's drill files (one verifier, miner and
+    noiser, every plane off, 2 rounds, every peer sampled, batch 8, seed
+    3) at the mnist softmax width, with the drill's windows
+    (ACCEPT_WINDOWS); `kw` the drill's own settings."""
+    from biscotti_tpu_torch.config import BiscottiConfig, Timeouts
+
+    base = dict(node_id=i, num_nodes=n, dataset="mnist", base_port=port,
+                num_verifiers=1, num_miners=1, num_noisers=1,
+                secure_agg=False, noising=False, verification=False,
+                max_iterations=2, convergence_error=0.0, sample_percent=1.0,
+                batch_size=8, seed=3,
+                timeouts=Timeouts(**ACCEPT_WINDOWS[drill]))
+    base.update(kw)
+    return BiscottiConfig(**base)
+
+
+def kernel_launches() -> dict:
+    """Every hand kernel's launch counter as it stands: B1, B2, B3a-B3d."""
+    from biscotti_tpu_torch.crypto.kernels import cuda_ladder as cl
+    from biscotti_tpu_torch.crypto.kernels import cuda_validate as cv
+    from biscotti_tpu_torch.ops import krum_cuda
+
+    b3 = cl.launches()
+    return {"B1": krum_cuda.krum_scores_kernel.launches,
+            "B2": cv.oncurve_mask.launches,
+            **{kid: b3[wrapper] for kid, (_, wrapper, _) in LADDER.items()}}
+
+
+def drill_line(cell: str, t0: float, t_start: float, stamps, before: dict,
+               **fields) -> dict:
+    """An acceptance cell's row: its seconds (from `t0`, perf_counter),
+    each round's wall time (the gaps between the anchor's per-round log
+    stamps, the first from `t_start` on the wall clock), the rounds the
+    anchor logged, every hand kernel's launches since `before` and the
+    cell's own `fields` (the oracle's values)."""
+    after = kernel_launches()
+    return {"cell": cell, "seconds": time.perf_counter() - t0,
+            "round_wall_s": round_walls(t_start, stamps),
+            "rounds": len(stamps),
+            "launches": {k: after[k] - before[k] for k in after}, **fields}
+
+
+def log_stamps(result: dict) -> list:
+    """The wall-clock stamps of a run result's per-round log lines."""
+    return [float(line.split(",")[2]) for line in result["logs"]]
+
+
+def round_walls(t_start: float, stamps: list) -> list:
+    """Each round's wall time: the gaps between per-round stamps, the
+    first from `t_start`."""
+    return [b - a for a, b in zip([t_start] + stamps, stamps)]
+
+
+def summed_counters(results) -> dict:
+    """Every counter of a cluster's run results, summed over its peers."""
+    out: dict = {}
+    for r in results:
+        for k, v in r["counters"].items():
+            out[k] = out.get(k, 0) + v
+    return dict(sorted(out.items()))
+
+
+def summed_phases(results) -> dict:
+    """Each round phase's seconds of a cluster's run, summed over its
+    peers, largest first."""
+    out: dict = {}
+    for r in results:
+        for ph, v in r.get("phases", {}).items():
+            out[ph] = out.get(ph, 0.0) + v["total_s"]
+    return {k: round(v, 4) for k, v in sorted(out.items(),
+                                              key=lambda kv: -kv[1])}
+
+
+def round_events(agents, it: int, t_start: float) -> dict:
+    """{event: [first, last, count]} of round `it` over `agents`' flight
+    recorders, in seconds from `t_start`: when the peers started it, when
+    refused workers sent their declines (`update_rejected`), approved
+    ones their shares (`update_sent`, the miner's `secret_registered`),
+    when its block was minted, fell back to an empty one, or was accepted
+    (`block_accepted` at height `it`)."""
+    out: dict = {}
+    for a in agents:
+        for ev in a.tele.recorder.tail(1 << 20):
+            name = ev.get("event")
+            if (ev.get("iter") == it and name in (
+                    "round_start", "update_rejected", "update_sent",
+                    "defense_decided", "secret_registered", "block_minted",
+                    "round_stall", "block_timeout_empty_fallback")) or (
+                    name == "block_accepted" and ev.get("height") == it):
+                out.setdefault(name, []).append(ev["ts"] - t_start)
+    return {k: [min(v), max(v), len(v)] for k, v in sorted(out.items())}
+
+
+def counter_total(registry, name: str) -> float:
+    """The sum of a counter family's series in a metrics registry."""
+    fam = registry.snapshot().get(name) if registry is not None else None
+    return sum(row["value"] for row in fam["series"]) if fam else 0.0
+
+
+def acceptance_guard(prewarm_b3: dict) -> dict:
+    """acceptance (a): the device cluster's bit-identity guard
+    (test_crypto_kernels.py:618-700) armed on the card, held to its
+    native run pair by pair until the two pooled alike (ROADMAP C8)."""
+    from biscotti_tpu_torch.config import Defense
+
+    t0, before = time.perf_counter(), kernel_launches()
+    workers, _ = round0_roles(ACCEPT_GUARD_PEERS, 1, 7850)
+    corrupter = workers[-1]  # the highest id off round 0's committees
+
+    def checks(row):
+        if not (row["rejection_evidence"] and corrupter in row["rejected"]
+                and row["stake"][corrupter] < row["default_stake"]):
+            raise AssertionError(f"acceptance (a): the share corrupter "
+                                 f"{corrupter} was not rejected and debited, "
+                                 f"or no evidence was recorded: {row}")
+
+    gw, g = armed_pair(
+        "a_guard_armed", "a_guard_native",
+        (ACCEPT_BASE_PORT, ACCEPT_BASE_PORT + 10), prewarm_b3,
+        ACCEPT_GUARD_PAIRS, checks, peers=ACCEPT_GUARD_PEERS,
+        phase="acceptance", gates=armed_walk_gates,
+        timeouts=ACCEPT_WINDOWS["guard"], dataset="mnist", secure_agg=True,
+        noising=False, verification=True, defense=Defense.NONE,
+        max_iterations=1, batch_size=8, seed=3, pipeline=True,
+        batch_intake=True,
+        classes={corrupter: byzantine_peers()["CorruptSharePeer"]})
+    row = {"cell": "a_guard", "seconds": time.perf_counter() - t0,
+           "round_wall_s": g["round_wall_s"], "rounds": g["rounds"],
+           "launches": {"B1": kernel_launches()["B1"] - before["B1"],
+                        "B2": g["b2_launches"],
+                        **{kid: g["b3_round_launches"][wrapper]
+                           for kid, (_, wrapper, _) in LADDER.items()}},
+           "b2_fold_launches": g["b2_fold_launches"],
+           "b3_launches_with_prewarms": g["b3_launches"],
+           "pairs": g["pair"] + 1, "corrupter": corrupter,
+           "real_blocks": g["nonempty_blocks"], "chain": g["chain"],
+           "chain_equals_native": g["chain_equals_witness"],
+           "pools": g["pools"], "evidence": g["rejection_evidence"],
+           "evidence_native": gw["rejection_evidence"], "stake": g["stake"],
+           "stake_native": gw["stake"],
+           "native_round_wall_s": gw["round_wall_s"],
+           "device_crypto_seconds": g["device_crypto_seconds"]}
+    emit("acceptance", **row)
+    for key in ("rejection_evidence", "stake"):
+        if g[key] != gw[key]:
+            raise AssertionError(f"acceptance (a): the armed plane's {key} "
+                                 f"{g[key]} is not the native plane's "
+                                 f"{gw[key]}")
+    return {**row, "b2_launches": g["b2_launches"],
+            "b3_launches": g["b3_round_launches"]}
+
+
+def acceptance_two_hives(dev) -> dict:
+    """acceptance (b): two hives of 50 under drops and churn
+    (test_hive.py:353), then one batch of the first hive's stepper."""
+    import asyncio
+
+    from biscotti_tpu_torch.runtime import hive as phive
+    from biscotti_tpu_torch.runtime.faults import FaultPlan
+    from biscotti_tpu_torch.runtime.membership import surviving_prefix_oracle
+
+    t0, before = time.perf_counter(), kernel_launches()
+    n, rounds = ACCEPT_HIVES_N, 3
+    plan = FaultPlan(seed=23, drop=0.02, delay=0.10, delay_s=0.02,
+                     churn=0.05, churn_period=2, churn_down=1)
+    schedule = plan.churn_schedule(n, rounds)
+    if not schedule:
+        raise AssertionError("acceptance (b): the seed does not churn")
+    cfg = drill_cfg(0, n, free_base(ACCEPT_BASE_PORT + 100, n), "two_hives",
+                    max_iterations=rounds, fault_plan=plan)
+    rss_before = phive.rss_bytes()
+    hives = [phive.Hive(cfg, range(0, n // 2), hive_id="c1"),
+             phive.Hive(cfg, range(n // 2, n), hive_id="c2")]
+
+    async def go():
+        return await asyncio.gather(*(h.run() for h in hives))
+
+    t_start = time.time()
+    runs = asyncio.run(go())
+    run_s = time.time() - t_start
+    results = [r for run in runs for r in run]
+    equal, settled, real = surviving_prefix_oracle(results)
+    summaries = [phive.summarize(h, run, run_s, rounds)
+                 for h, run in zip(hives, runs)]
+    batch = None
+    if hives[0].stepper is not None:
+        w = np.asarray(hives[0].agents[0].chain.latest_gradient())
+        batch, _ = stepper_batch(dev, hives[0].stepper, w, rounds)
+    row = drill_line(
+        "b_two_hives", t0, t_start, log_stamps(results[0]), before,
+        peers=n, results=len(results), prefix_equal=equal,
+        settled=settled, real_blocks=real,
+        churn_schedule=[[e.round, e.node, e.kind] for e in schedule],
+        churned=sum(bool(r.get("churned")) for r in results),
+        faults_injected=sum(sum(r.get("faults", {}).values())
+                            for r in results),
+        loopback_rpcs=sum(counter_total(a.pool.metrics,
+                                        phive.LOOPBACK_RPCS_METRIC)
+                          for h in hives for a in h.agents),
+        devices=sorted({str(h.device) for h in hives}),
+        batched=[h.stepper is not None for h in hives],
+        rss_before_bytes=rss_before,
+        rss_growth_per_peer_bytes=(max(h.info["rss_sampled_max_bytes"]
+                                       for h in hives) - rss_before) // n,
+        rss_sampled_max_bytes=[s["rss_sampled_max_bytes"] for s in summaries],
+        loop_lag_s=[s["loop_lag_s"] for s in summaries],
+        s_per_iter=[s["s_per_iter"] for s in summaries], batch=batch)
+    emit("acceptance", **row)
+    if not (len(results) == n and equal and settled >= 1
+            and row["faults_injected"] > 0 and row["loopback_rpcs"] > 0
+            and row["devices"] == ["cuda"]):
+        raise AssertionError(f"acceptance (b): {len(results)} results, the "
+                             f"surviving prefixes differ or settled nothing, "
+                             f"no fault fired or no loopback RPC: {row}")
+    return row
+
+
+def acceptance_rebalance() -> dict:
+    """acceptance (c): the rebalance of N = 100 under secure aggregation
+    and verification (test_placement.py:377), through the port's
+    PlacementController and the reference's rigged host signals."""
+    import asyncio
+
+    from biscotti_tpu_torch.runtime import placement as pl
+    from biscotti_tpu_torch.runtime.hive import LoopbackHub
+    from biscotti_tpu_torch.runtime.membership import surviving_prefix_oracle
+    from biscotti_tpu_torch.runtime.peer import PeerAgent
+
+    t0, before = time.perf_counter(), kernel_launches()
+    n = ACCEPT_REBALANCE_N
+    plan = pl.PlacementPlan(enabled=True, seed=0, interval=1, max_moves=2,
+                            lag_hot_s=0.05)
+    layout = pl.hive_layout(n, 2)
+    if pl.aligned_overlay_group(layout) != n // 2:
+        raise AssertionError(f"acceptance (c): layout {layout}")
+    hive_ids = ["host0", "host1"]
+    assignment = {node: hid for hid, (start, count) in zip(hive_ids, layout)
+                  for node in range(start, start + count)}
+    cfg = drill_cfg(0, n, free_base(ACCEPT_BASE_PORT + 300, n), "rebalance",
+                    secure_agg=True, noising=True, verification=True,
+                    sample_percent=0.2, placement_plan=plan)
+    cfg = cfg.replace(timeouts=cfg.timeouts.scaled(
+        n, cfg.num_verifiers, cfg.num_miners))
+    hubs = {hid: LoopbackHub() for hid in hive_ids}
+    made = {}
+
+    def make_agent(node, hive_id, ticket):
+        made[node] = PeerAgent(cfg.replace(node_id=node), hive=hubs[hive_id],
+                               ticket=ticket)
+        return made[node]
+
+    def rigged(assignment, agents):
+        # the reference's rig: process-wide gauges read equally hot on one
+        # box, so the pressure comes through the signals_fn seam
+        by = {}
+        for node, hid in sorted(assignment.items()):
+            by.setdefault(hid, []).append(node)
+        return [pl.HostSignals(hive_id=hid, peers=tuple(nodes),
+                               loop_lag_s=1.0 if hid == "host0" else 0.0)
+                for hid, nodes in sorted(by.items())]
+
+    ctl = pl.PlacementController(make_agent, assignment, plan,
+                                 signals_fn=rigged)
+    t_start = time.time()
+    results = asyncio.run(asyncio.wait_for(ctl.run(), 900))
+    equal, settled, real = surviving_prefix_oracle(results)
+    moved = {node: next(r for r in results if r["node"] == node)
+             for _, node, _, _ in ctl.moves_applied}
+    stake = made[0].chain.latest_stake_map()
+    # round times from a peer that never moved (a moved one logs only
+    # its last incarnation's rounds)
+    row = drill_line(
+        "c_rebalance", t0, t_start,
+        log_stamps(next(r for r in results if r["node"] not in moved)),
+        before,
+        peers=n, prefix_equal=equal, settled=settled, real_blocks=real,
+        moves=[list(m) for m in ctl.moves_applied],
+        moved_state={node: [r["migrations"],
+                            r["counters"].get("migration_restored", 0)]
+                     for node, r in moved.items()},
+        downtimes_s=ctl.downtimes_s, ticket_bytes=ctl.ticket_bytes,
+        chain=made[0].chain.dump().splitlines()[1:],
+        counters=summed_counters(results),
+        phases_total_s=summed_phases(results),
+        round0_events=round_events(made.values(), 0, t_start),
+        stakes=len(stake), min_stake=min(stake.values()),
+        default_stake=cfg.default_stake,
+        devices=sorted({str(a.trainer.x_test.device)
+                        for a in made.values()}))
+    emit("acceptance", **row)
+    if not (equal and real >= 1 and len(ctl.moves_applied) >= 2
+            and all(src == "host0" and dst == "host1"
+                    for _, _, src, dst in ctl.moves_applied)
+            and all(m >= 1 and restored >= 1
+                    for m, restored in row["moved_state"].values())
+            and len(stake) == n
+            and all(v >= cfg.default_stake for v in stake.values())
+            and row["devices"] == ["cuda:0"]):
+        raise AssertionError(f"acceptance (c): the rebalance forked, moved "
+                             f"fewer than 2 peers host0 -> host1, lost a "
+                             f"moved peer's state or debited an honest "
+                             f"stake: {row}")
+    return row
+
+
+def acceptance_slow_fleet() -> dict:
+    """acceptance (d): 10 mnist peers, the tee preset on 2 of them
+    (test_stragglers.py:522)."""
+    import asyncio
+
+    from biscotti_tpu_torch.runtime.faults import FaultPlan
+    from biscotti_tpu_torch.runtime.peer import PeerAgent
+    from biscotti_tpu_torch.tools import chaos, obs
+
+    t0, before = time.perf_counter(), kernel_launches()
+    n = ACCEPT_FLEET_N
+    # the reference's scan: the seed whose tee preset slows exactly 2 of 10
+    seed = next(s for s in range(500)
+                if len(FaultPlan(seed=s, slow=0.2,
+                                 slow_preset="tee").slow_table(n)) == 2)
+    plan = FaultPlan(seed=seed, slow=0.2, slow_preset="tee")
+    slow_ids = sorted(plan.slow_table(n))
+    port = free_base(ACCEPT_BASE_PORT + 500, n)
+
+    async def go():
+        agents = [PeerAgent(drill_cfg(i, n, port, "slow_fleet",
+                                      fault_plan=plan, secure_agg=True,
+                                      verification=True, batch_size=10,
+                                      adaptive_deadlines=True,
+                                      deadline_floor_s=1.0, max_iterations=5))
+                  for i in range(n)]
+        return agents, await asyncio.gather(*(a.run() for a in agents))
+
+    t_start = time.time()
+    agents, results = asyncio.run(go())
+    equal, common, real = chaos.chain_oracle(results)
+    stake = agents[0].chain.latest_stake_map()
+    merged = obs.merge_snapshots([r["telemetry"] for r in results])
+    table = obs.format_table(merged)
+    row = drill_line(
+        "d_slow_fleet", t0, t_start, log_stamps(results[0]), before,
+        peers=n, fault_seed=seed, slow_ids=slow_ids, prefix_equal=equal,
+        common=common, real_blocks=real,
+        opens_toward_slow={sid: sum(r["telemetry"]["health"]
+                                    .get(str(sid), {}).get("opens", 0)
+                                    for r in results if r["node"] != sid)
+                           for sid in slow_ids},
+        slow_stake={sid: stake.get(sid, 0) for sid in slow_ids},
+        default_stake=agents[0].cfg.default_stake,
+        slow_peers=len(merged["stragglers"]["slow_peers"]),
+        adaptive_peers=merged["stragglers"]["adaptive_peers"],
+        table_rows=[ln for ln in table.splitlines()
+                    if "stragglers:" in ln or "waiting-on" in ln],
+        devices=sorted({str(a.trainer.x_test.device) for a in agents}))
+    emit("acceptance", **row)
+    if not (equal and common >= 3 and real >= 2
+            and not any(row["opens_toward_slow"].values())
+            and all(v >= row["default_stake"]
+                    for v in row["slow_stake"].values())
+            and row["slow_peers"] == 2 and row["adaptive_peers"] == n
+            and "stragglers:" in table and "waiting-on" in table
+            and row["devices"] == ["cuda:0"]):
+        raise AssertionError(f"acceptance (d): the slow fleet parted, made "
+                             f"fewer than 2 real blocks in a common prefix "
+                             f"of 3, quarantined or debited a tee peer, or "
+                             f"its obs merge lacks the stragglers: {row}")
+    return row
+
+
+def acceptance_churn_verdict() -> dict:
+    """acceptance (e): 20 % turnover on 8 peers for 12 rounds with 30 %
+    poisoners under FOOLSGOLD (test_membership.py:658): a snapshot-
+    bootstrapped ChurnRunner run, then the plain run, whose settled
+    defense verdicts must agree."""
+    import asyncio
+
+    from biscotti_tpu_torch.config import Defense
+    from biscotti_tpu_torch.runtime.faults import FaultPlan
+    from biscotti_tpu_torch.runtime.membership import (ChurnRunner,
+                                                       surviving_prefix_oracle)
+    from biscotti_tpu_torch.runtime.peer import PeerAgent
+    from biscotti_tpu_torch.tools.verdicts import (chain_defense_verdict,
+                                                   poisoned_ids)
+
+    t0, before = time.perf_counter(), kernel_launches()
+    n, rounds = ACCEPT_CHURN_N, ACCEPT_CHURN_ROUNDS
+    plan = FaultPlan(seed=15, churn=0.2, churn_period=6, churn_down=2)
+    schedule = plan.churn_schedule(n, rounds)
+    poisoned = poisoned_ids(n, 0.3)
+    if not (schedule and poisoned):
+        raise AssertionError("acceptance (e): no churn or no poisoner")
+
+    def make_cfg(i, port, snap):
+        return drill_cfg(i, n, port, "churn_verdict", num_miners=2,
+                         secure_agg=True, verification=True,
+                         max_iterations=rounds, rpc_retries=1,
+                         poison_fraction=0.3, defense=Defense.FOOLSGOLD,
+                         snapshot_bootstrap=snap, snapshot_tail=4)
+
+    def accepted_poisoned(anchor):
+        return sorted(chain_defense_verdict(anchor.chain.blocks,
+                                            poisoned)["accepted_poisoned"])
+
+    churn_port = free_base(ACCEPT_BASE_PORT + 600, n)
+    plain_port = free_base(ACCEPT_BASE_PORT + 650, n)
+
+    async def churn_run():
+        made = {}
+
+        def make(i):
+            made[i] = PeerAgent(make_cfg(i, churn_port, snap=True))
+            return made[i]
+
+        runner = ChurnRunner(make, n, schedule)
+        return await runner.run(), made[0], runner.events_applied
+
+    async def plain_run():
+        agents = [PeerAgent(make_cfg(i, plain_port, snap=False))
+                  for i in range(n)]
+        return await asyncio.gather(*(a.run() for a in agents)), agents[0]
+
+    t_start = time.time()
+    churn_results, churn_anchor, applied = asyncio.run(churn_run())
+    churn_s = time.time() - t_start
+    equal, settled, real = surviving_prefix_oracle(churn_results)
+    t_plain = time.time()
+    plain_results, plain_anchor = asyncio.run(plain_run())
+    pequal, psettled, preal = surviving_prefix_oracle(plain_results)
+    replayed = FaultPlan(seed=15, churn=0.2, churn_period=6,
+                         churn_down=2).churn_schedule(n, rounds) == schedule
+    row = drill_line(
+        "e_churn_verdict", t0, t_start,
+        log_stamps(next(r for r in churn_results if r["node"] == 0)), before,
+        peers=n, churn_s=churn_s,
+        plain_round_wall_s=round_walls(t_plain, log_stamps(plain_results[0])),
+        schedule=[[e.round, e.node, e.kind] for e in schedule],
+        events_applied=[list(e) for e in applied], schedule_replays=replayed,
+        prefix_equal=equal, settled=settled, real_blocks=real,
+        plain_prefix_equal=pequal, plain_settled=psettled, plain_real=preal,
+        poisoned=sorted(poisoned),
+        accepted_poisoned=accepted_poisoned(churn_anchor),
+        accepted_poisoned_plain=accepted_poisoned(plain_anchor),
+        devices=sorted({str(a.trainer.x_test.device)
+                        for a in (churn_anchor, plain_anchor)}))
+    emit("acceptance", **row)
+    if not (equal and settled >= rounds // 2 and real >= 1 and replayed
+            and pequal and preal >= 1
+            and row["accepted_poisoned"] == row["accepted_poisoned_plain"]
+            and row["devices"] == ["cuda:0"]):
+        raise AssertionError(f"acceptance (e): the churn run parted, settled "
+                             f"too little or made no real block, the schedule "
+                             f"does not replay, the plain run failed, or the "
+                             f"defense verdict moved under churn: {row}")
+    return row
+
+
+def acceptance_upgrade(prewarm_b3: dict) -> dict:
+    """acceptance (f): the rolling upgrade at N = 8 under secure
+    aggregation and f32+zlib (test_upgrade.py:116) through the chaos CLI."""
+    from biscotti_tpu_torch.runtime import protocol
+
+    # chaos_cell's crypto_switch sets B2's and B3's counters to 0 as the
+    # cell starts, B1's it leaves
+    t0 = time.perf_counter()
+    before = {k: v if k == "B1" else 0 for k, v in kernel_launches().items()}
+    t_start = time.time()
+    cli, report, agents = chaos_cell("f_rolling_upgrade", 8,
+                                     ACCEPT_UPGRADE_FLAGS, prewarm_b3)
+    ru = report["rolling_upgrade"]
+    anchor = [a for a in agents if a.id == 0][-1]
+    row = drill_line(
+        "f_rolling_upgrade", t0, t_start, [t for _, _, t in anchor.logs],
+        before, argv=cli["argv"], rc=cli["rc"], waves=ru["waves"],
+        applied=ru["applied"], final_versions=ru["final_versions"],
+        current_version=protocol.CURRENT_VERSION,
+        prefix_equal=report["settled_prefix_equal"],
+        settled=report["settled_height"], real_blocks=report["real_blocks"],
+        feature_degraded=report["cluster"]["counters"].get(
+            "feature_degraded", 0),
+        devices=cli["devices"])
+    emit("acceptance", **row)
+    if not (cli["rc"] == 0 and [w[0] for w in ru["waves"]] == [2, 4, 6]
+            and len(ru["applied"]) == 7
+            and set(ru["final_versions"].values())
+            == {protocol.CURRENT_VERSION}
+            and report["settled_prefix_equal"]
+            and report["real_blocks"] >= 1):
+        raise AssertionError(f"acceptance (f): the rolling upgrade failed "
+                             f"(rc, waves, the 7 upgrades, the final "
+                             f"versions or the settled prefix): {row}")
+    return row
+
+
+def acceptance_phase(dev, prewarm_b3: dict,
+                     cells: str = ACCEPT_CELLS) -> dict:
+    """The reference's slow acceptance drills on the card, the `cells` of
+    (a)-(f) of the module docstring (ACCEPT_CELLS: all but (c), which
+    ROADMAP C16 keeps from its gate on the card); returns the phase's
+    row with (a)'s B2 and B3 launches (B3's beyond the peers' prewarms)
+    and every cell's B1 launches."""
+    import torch
+
+    from biscotti_tpu_torch.config import BiscottiConfig
+
+    drills = {"a": lambda: acceptance_guard(prewarm_b3),
+              "b": lambda: acceptance_two_hives(dev),
+              "c": acceptance_rebalance, "d": acceptance_slow_fleet,
+              "e": acceptance_churn_verdict,
+              "f": lambda: acceptance_upgrade(prewarm_b3)}
+    t_phase = time.perf_counter()
+    warm_cell(BiscottiConfig(dataset="mnist", batch_size=8))
+    rows = {k: drills[k]() for k in cells}
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_phase
+    emit("acceptance", cell="phase", seconds=seconds,
+         cells_s={k: r["seconds"] for k, r in rows.items()})
+    zero = {wrapper: 0 for _, wrapper, _ in LADDER.values()}
+    guard = rows.get("a", {"b2_launches": 0, "b3_launches": zero})
+    return {"b1_launches": sum(r["launches"]["B1"] for r in rows.values()),
+            "b2_launches": guard["b2_launches"],
+            "b3_launches": guard["b3_launches"], "seconds": seconds}
+
+
 def hive_cell(name: str, cfg, pool_hook: bool = False):
     """A port `Hive` of every peer of `cfg` on the card (device None: the
     GPU), run to the end: (row, hive, results, the verifier pools of 512 or
@@ -3299,16 +3948,12 @@ def hive_cell(name: str, cfg, pool_hook: bool = False):
     run_s = time.time() - t0
     summary = phive.summarize(hive, results, run_s, cfg.max_iterations)
     blocks = results[0]["chain_dump"].splitlines()[1:]
-    stamps = [float(line.split(",")[2]) for line in results[0]["logs"]]
+    stamps = log_stamps(results[0])
     stream = sorted((int(v["it"]), [int(x) for x in v["src"]],
                      [bool(x) for x in v["accept"]])
                     for r in results
                     for v in r["telemetry"].get("trust", {}).get("stream", []))
     verdicts = [[it, len(src), sum(acc)] for it, src, acc in stream]
-    phases: dict = {}
-    for r in results:
-        for ph, v in r["phases"].items():
-            phases[ph] = phases.get(ph, 0.0) + v["total_s"]
     row = {"cell": name, "peers": cfg.num_nodes, "base_port": cfg.base_port,
            "dataset": cfg.dataset,
            "model": cfg.model_name or "default",
@@ -3333,8 +3978,7 @@ def hive_cell(name: str, cfg, pool_hook: bool = False):
            "loopback_avoided_bytes_per_round":
                summary["loopback_avoided_bytes_per_round"],
            "final_error": summary["final_error"],
-           "phases_total_s": {k: round(v, 4) for k, v in sorted(
-               phases.items(), key=lambda kv: -kv[1])},
+           "phases_total_s": summed_phases(results),
            "anchor_phases_s": {k: round(v["total_s"], 4) for k, v in sorted(
                results[0]["phases"].items(), key=lambda kv: -kv[1]["total_s"])},
            "chain": blocks}
@@ -3345,13 +3989,46 @@ def hive_cell(name: str, cfg, pool_hook: bool = False):
     return row, hive, results, pools
 
 
+def stepper_batch(dev, st, w: np.ndarray, it: int) -> tuple:
+    """One HiveStepper batch of round `it` at weights `w`, after its run:
+    ({its draws' host ms (3 draws), its time (CUDA events) and
+    torch.profiler's device ms, kernel count and top kernels}, the
+    batch's [H, d] deltas)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    wt = torch.from_numpy(w.astype(np.float32)).to(dev)
+    draws_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx = st.draw_batches(it)
+        torch.cuda.synchronize()
+        draws_ms.append(1e3 * (time.perf_counter() - t0))
+    batch_ms = time_ms(lambda: st.deltas_from_draws(wt, idx), reps=5)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        deltas = st.deltas_from_draws(wt, idx)
+        torch.cuda.synchronize()
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"batch_peers": len(st.local_ids), "batch_ms": batch_ms,
+            "batch_device_ms": sum(e.self_device_time_total
+                                   for e in on_device) / 1e3,
+            "batch_kernels": sum(e.count for e in on_device),
+            "draws_host_ms": draws_ms,
+            "top": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
+                     "calls": e.count} for e in sorted(
+                         on_device, key=lambda e: -e.self_device_time_total)[:6]]
+            }, deltas
+
+
 def hive_phase(dev) -> dict:
     """The hive on the card, cells (a)-(d) of the module docstring; returns
     the phase's row with B1's launches in (c)'s live round."""
     import asyncio
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from biscotti_tpu_torch import bench
     from biscotti_tpu_torch.config import BiscottiConfig, Defense
@@ -3385,26 +4062,13 @@ def hive_phase(dev) -> dict:
 
     # (b) 100 mnist_cnn peers; one batch profiled and held to the peers'
     # standalone Trainers on the card
-    cfg_b = cell_cfg(HIVE_CNN_N, HIVE_BASE_PORT, 2, model_name="mnist_cnn")
+    cfg_b = cell_cfg(HIVE_CNN_N, HIVE_BASE_PORT, HIVE_CNN_ROUNDS,
+                     model_name="mnist_cnn")
     b, hive_b, _, _ = hive_cell("b_cnn_n100", cfg_b)
     st = hive_b.stepper
     w = np.asarray(hive_b.agents[0].chain.latest_gradient())
-    wt = torch.from_numpy(w.astype(np.float32)).to(dev)
     it = cfg_b.max_iterations
-    draws_ms = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        idx = st.draw_batches(it)
-        torch.cuda.synchronize()
-        draws_ms.append(1e3 * (time.perf_counter() - t0))
-    batch_ms = time_ms(lambda: st.deltas_from_draws(wt, idx), reps=5)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        deltas = st.deltas_from_draws(wt, idx)
-        torch.cuda.synchronize()
-    on_device = [e for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    batch, deltas = stepper_batch(dev, st, w, it)
     worst = 0.0
     for slot, pid in enumerate(st.local_ids):
         t = Trainer(cfg_b.dataset, ds.shard_name(cfg_b.dataset, pid, False),
@@ -3417,14 +4081,7 @@ def hive_phase(dev) -> dict:
                               atol=RTOL * float(want.abs().max())):
             raise AssertionError(f"hive (b): peer {pid}'s batched delta is "
                                  f"not its standalone Trainer's: {diff}")
-    b.update(batch_peers=len(st.local_ids), batch_ms=batch_ms,
-             batch_device_ms=sum(e.self_device_time_total
-                                 for e in on_device) / 1e3,
-             batch_kernels=sum(e.count for e in on_device),
-             draws_host_ms=draws_ms, trainer_max_abs_diff=worst,
-             top=[{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
-                   "calls": e.count} for e in sorted(
-                       on_device, key=lambda e: -e.self_device_time_total)[:6]])
+    b.update(trainer_max_abs_diff=worst, **batch)
     emit("hive", **b)
     if b["sgd_batches"] != cfg_b.max_iterations:
         raise AssertionError(f"hive (b): {b['sgd_batches']} batches, not one "
@@ -3870,11 +4527,12 @@ def entry_phase() -> dict:
 
 
 def ladder_line(crypto: dict, secagg: dict, live: dict, chaos: dict,
-                protocol: dict, drivers: dict):
+                protocol: dict, acceptance: dict, drivers: dict):
     """The kernels line's rows of B3a-B3d: launches on the main paths by
     phase (the crypto intake, secagg's armed intakes, the rounds of live
-    (b), (d) and (e), of chaos (a) and of protocol (a) and (b) beyond the
-    peers' prewarms, drivers (c)'s msm), and the times and
+    (b), (d) and (e), of chaos (a), of protocol (a) and (b) and of
+    acceptance (a) beyond the peers' prewarms, drivers (c)'s msm), and
+    the times and
     bound at the shape the settle gives each (B3a's 8,192 lanes, B3b's
     Pedersen comb at 1 x 512, B3c's verdicts of 64 x 7,850 cells, the
     instance `grid_sum` runs, B3d's ext_add of 7,850 pairs), the other
@@ -3887,6 +4545,7 @@ def ladder_line(crypto: dict, secagg: dict, live: dict, chaos: dict,
                     "live": live["b3_launches"][wrapper],
                     "chaos": chaos["b3_launches"][wrapper],
                     "protocol": protocol["b3_launches"][wrapper],
+                    "acceptance": acceptance["b3_launches"][wrapper],
                     "drivers": drivers["b3_crypto_kernel"][wrapper]}
         timed = crypto["ladder"][kid]
         main = timed[-1] if kid == "B3b" else timed[0]
@@ -3912,6 +4571,42 @@ def ladder_line(crypto: dict, secagg: dict, live: dict, chaos: dict,
     return rows
 
 
+def card_smi() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def acceptance_alone(cells: str) -> int:
+    """`python3 chip_smoke.py acceptance [CELLS]`: the three libraries
+    built, one prewarm's B3 launches at the mnist width taken (the secagg
+    phase's count), then the acceptance phase's `cells` (letters of
+    (a)-(f), default ACCEPT_CELLS) alone on the card and the card's name
+    and power limit."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from biscotti_tpu_torch import _build
+    from biscotti_tpu_torch.crypto import kernels
+    from biscotti_tpu_torch.crypto.kernels import cuda_ladder as cl
+
+    smi = card_smi()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with ThreadPoolExecutor(len(_build.KERNELS)) as pool:  # one nvcc each
+        list(pool.map(_build.build, _build.KERNELS))
+    with crypto_switch(arm=True):
+        kernels.prewarm(7850)
+        prewarm_b3 = cl.launches()
+    out = acceptance_phase(torch.device("cuda", 0), prewarm_b3, cells)
+    print(json.dumps(out), flush=True)
+    print(smi, flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3927,9 +4622,7 @@ def main() -> int:
     from biscotti_tpu_torch.parallel.sim import Simulator
 
     # 1. device ---------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = card_smi()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
@@ -4188,6 +4881,9 @@ def main() -> int:
     protocol = protocol_phase(dev, ladder, oncurve_sass,
                               secagg["b3_launches_prewarm"])
 
+    # acceptance: the reference's slow acceptance drills on the card ------
+    acceptance = acceptance_phase(dev, secagg["b3_launches_prewarm"])
+
     # hive: slice 7, co-hosted port peers on the card -----------------------
     hive = hive_phase(dev)
 
@@ -4207,12 +4903,14 @@ def main() -> int:
         "replaces": "biscotti_tpu/ops/krum_pallas.py:72",
         "launches": (main_launches + defenses["b1_launches"]
                      + cnn["b1_launches"] + ledger["b1_launches"]
-                     + hive["b1_launches"] + drivers["b1_krum_kernel"]
-                     + drivers["b1_sim_scale"] + mesh["b1_launches"]),
+                     + acceptance["b1_launches"] + hive["b1_launches"]
+                     + drivers["b1_krum_kernel"] + drivers["b1_sim_scale"]
+                     + mesh["b1_launches"]),
         "launches_by_phase": {"main": main_launches,
                               "defenses": defenses["b1_launches"],
                               "cnn": cnn["b1_launches"],
                               "ledger": ledger["b1_launches"],
+                              "acceptance": acceptance["b1_launches"],
                               "hive": hive["b1_launches"],
                               "drivers_krum_kernel": drivers["b1_krum_kernel"],
                               "drivers_sim_scale": drivers["b1_sim_scale"],
@@ -4244,12 +4942,14 @@ def main() -> int:
         "launches": (crypto["oncurve_launches"] + secagg["b2_launches"]
                      + live["b2_launches"] + chaos["b2_launches"]
                      + protocol["b2_launches"]
+                     + acceptance["b2_launches"]
                      + drivers["b2_crypto_kernel"]),
         "launches_by_phase": {"crypto": crypto["oncurve_launches"],
                               "secagg": secagg["b2_launches"],
                               "live": live["b2_launches"],
                               "chaos": chaos["b2_launches"],
                               "protocol": protocol["b2_launches"],
+                              "acceptance": acceptance["b2_launches"],
                               "drivers": drivers["b2_crypto_kernel"]},
         "max_abs_err": max(b2["max_abs_err"],
                            protocol["shapes"]["B2"]["max_abs_err"]),
@@ -4259,7 +4959,7 @@ def main() -> int:
         "at_the_cifar_cnn_fold": {k: protocol["shapes"]["B2"][k] for k in (
             "shape", "ms", "kernel_only_ms", "plain_ms", "bound_ms",
             "bound_by")}}] + ladder_line(crypto, secagg, live, chaos,
-                                          protocol, drivers)}),
+                                          protocol, acceptance, drivers)}),
         flush=True)
     print(smi, flush=True)  # the card's name and power limit, verbatim
     print(json.dumps({"ok": True, "device": {
@@ -4269,4 +4969,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["acceptance"]:
+        raise SystemExit(acceptance_alone(
+            "".join(sys.argv[2:]) or ACCEPT_CELLS))
     raise SystemExit(main())
