@@ -307,6 +307,50 @@ printed as one JSON line:
               the prefix equal with a real block. Each cell's line: its
               seconds, each round's wall time, the rounds reached, real
               blocks, the oracle's values and every kernel's launches;
+  matrices    the reference's last slow drills and one cycle of the
+              port's soak, each built as its test builds it at the mnist
+              softmax width and gated by its assertions: (a) the chaos
+              matrix of test_faults.py:521, 4 peers, 4 rounds, each of
+              the FaultPlans drop20, delay100, dup30, reset15 and mixed
+              (seed 29): the settled prefix equal over a common height of
+              2 or more with a real block and a fault injected in every
+              case, each case's wall time, RPC retries and breaker opens;
+              (b) the mnist flood acceptance of test_admission.py:597, 4
+              peers, node 1 flooding 50x under the TIGHT admission plan,
+              then admission without the flood, then neither: the flood
+              run's prefix equal over 2 or more with a real block, honest
+              sheds, every inflight and parked peak under its cap and no
+              breaker open between honest peers; the clean run without a
+              shed or an open; both runs without the flood equal with a
+              real block and final errors within 0.15; (c) the attack-
+              matrix driver of test_adversary.py:636 through
+              `eval.eval_attack_matrix.main` ({static, hug} x {NONE,
+              KRUM}, 5 peers, 3 rounds, `--platform cuda`): rc 0, 4 rows
+              with the test's columns, each row's failed bit its survival,
+              the chaos CLI in its replay, no poisoned record accepted
+              where a campaign survived, the JSON and CSV artifacts; (d)
+              the traced overlay under chaos of test_tracing.py:532, armed
+              (`crypto_switch(arm=True)`): 8 peers, secure aggregation,
+              verification, 2 miners, the overlay in groups of 4,
+              FaultPlan seed 11 (5 % drops, 20 % of frames delayed 50 ms),
+              3 rounds, polled mid-run by `tools.trace_round.poll_cluster`
+              (2 rounds, 240 s budget, every 0.5 s): every chain equal, a
+              complete round over 3 or more peers whose critical path
+              covers 2 or more peers and 80 % of its wall time and sums to
+              it within 1e-3, the Chrome trace valid with X events, B3a,
+              B3b and B3d in its rounds beyond the prewarms, the overlay's
+              tallies reported; (e) `tools.soak.main`, one cycle of 6
+              mnist peers for 8 rounds with the CLI's churn, roleflood
+              campaign, stragglers, drops and SLO limits, one migration
+              and a rolling upgrade from protocol row 0 (waves every 2
+              rounds): the surviving-prefix oracle with a real block,
+              every SLO gate but the RSS drift (ROADMAP C19: one cycle's
+              RSS rise scaled to an hour fails it, in the reference's soak
+              too), one cycle, schema soak-v1; the exit code, the five
+              SLO values beside their limits and the RSS series
+              reported. Every peer on the card.
+              `python3 chip_smoke.py matrices [CELLS]` runs the phase
+              alone;
   hive        co-hosted port peers on the card, one process, loopback
               transport, one batched SGD call a round (runtime/hive.py):
               (a) the reference's density entry at N = 100 (bench.py:452)
@@ -375,16 +419,18 @@ printed as one JSON line:
               of 20, each ending in a synchronize); B1 launches 0 (S = 16
               lies below B1's window, as in the reference);
   6. kernels  one line for every ported kernel (B1's launches from phases
-              4, defenses, cnn, ledger, acceptance (0: every pool under
-              512), hive (c), drivers (a) and (b) and mesh (a) and (b),
+              4, defenses, cnn, ledger, acceptance and matrices (0: every
+              pool under 512), hive (c), drivers (a) and (b) and mesh (a)
+              and (b),
               with its times at (716, 164266), at the hive's live pool, at
               the mesh's gathered pools and at each committee size of
               drivers (a) beside those at (716, 7850); B2's from the
               crypto and secagg phases' intakes, the live miners' folds,
-              chaos (a), protocol (a) and (b), acceptance (a) and drivers
-              (c); B3a-B3d's from the crypto and secagg intakes, the
-              rounds of live (b), (d) and (e), of chaos (a), of protocol
-              (a) and (b), of acceptance (a) and drivers (c), each with
+              chaos (a), protocol (a) and (b), acceptance (a), matrices (d)
+              and drivers (c); B3a-B3d's from the crypto and secagg
+              intakes, the rounds of live (b), (d) and (e), of chaos (a),
+              of protocol (a) and (b), of acceptance (a), of matrices (d)
+              and drivers (c), each with
               its times and bound
               at the settle's shape and, under `at`, the protocol
               phase's).
@@ -394,9 +440,10 @@ the run's records are keyed by) and, last, the device JSON. Any
 failed check raises, and the script exits non-zero without the last line;
 with no CUDA device it exits 1 at once.
 
-`python3 chip_smoke.py acceptance [CELLS]` builds the libraries and runs
-the acceptance phase alone, its default cells or the letters named (then
-its launches and the nvidia-smi line).
+`python3 chip_smoke.py acceptance [CELLS]` and `python3 chip_smoke.py
+matrices [CELLS]` build the libraries and run that phase alone, its
+default cells or the letters named (then its launches and the nvidia-smi
+line).
 """
 
 from __future__ import annotations
@@ -600,10 +647,52 @@ ACCEPT_WINDOWS = {
     "slow_fleet": dict(update_s=20.0, block_s=45.0, krum_s=6.0,
                        share_s=20.0, rpc_s=8.0),
     "churn_verdict": dict(update_s=5.0, block_s=15.0, krum_s=3.0,
-                          share_s=5.0, rpc_s=4.0)}
+                          share_s=5.0, rpc_s=4.0),
+    # the matrices phase's drills: test_faults.py:33, test_admission.py:36
+    # and test_tracing.py:20
+    "chaos_matrix": dict(update_s=4.0, block_s=12.0, krum_s=3.0,
+                         share_s=4.0, rpc_s=4.0),
+    "flood": dict(update_s=4.0, block_s=12.0, krum_s=3.0, share_s=4.0,
+                  rpc_s=4.0),
+    "trace_overlay": dict(update_s=20.0, block_s=60.0, krum_s=20.0,
+                          share_s=20.0, rpc_s=10.0)}
 ACCEPT_UPGRADE_FLAGS = [
     "--rounds", "8", "--rolling-upgrade", "0", "--upgrade-period", "2",
     "--upgrade-wave", "3", "--secure-agg", "1", "--codec", "f32+zlib"]
+# matrices: the reference's last slow drills (ROADMAP C11, "The slow C11
+# rows" 8), each as its test builds it at the mnist softmax width, and one
+# cycle of the port's soak CLI: (a) the chaos matrix's five FaultPlans
+# (test_faults.py:521), (b) the mnist flood acceptance's three runs
+# (test_admission.py:597), (c) the attack-matrix driver
+# (test_adversary.py:636), (d) the traced overlay under chaos, armed
+# (test_tracing.py:532), (e) tools/soak.py's composed cycle
+MATRIX_BASE_PORT = 22000
+MATRIX_CELLS = "abcde"
+MATRIX_CHAOS_SEED = 29
+MATRIX_CHAOS_CASES = {
+    "drop20": dict(drop=0.20), "delay100": dict(delay=1.0, delay_s=0.08),
+    "dup30": dict(duplicate=0.30), "reset15": dict(reset=0.15),
+    "mixed": dict(drop=0.10, delay=0.50, delay_s=0.05, duplicate=0.10,
+                  reset=0.05)}
+MATRIX_FLOOD_NODE = 1
+MATRIX_FLOOD_X = 50
+MATRIX_ERROR_GAP = 0.15  # the clean and baseline runs' final errors
+MATRIX_ATTACK_ARGV = [
+    "--quick", "--nodes", "5", "--rounds", "3", "--campaigns", "static,hug",
+    "--defenses", "NONE,KRUM", "--dataset", "mnist", "--platform", "cuda",
+    "--tag", "am_smoke"]
+MATRIX_TRACE_PEERS = 8
+MATRIX_TRACE_PLAN = dict(seed=11, drop=0.05, delay=0.2, delay_s=0.05)
+MATRIX_TRACE_POLL = dict(rounds=2, budget_s=240.0, poll_s=0.5, min_nodes=3)
+# the soak's defaults for churn, the campaign flood, stragglers, drops and
+# every SLO limit; the rolling upgrade's waves every 2 rounds (2, 4, 6),
+# since the CLI's default period of 3 puts the last of 6 peers' waves at
+# round 9, past the cycle's 8 rounds, which the CLI refuses
+SOAK_DRIFT_GATE = "rss_drift_bytes_per_h"  # ROADMAP C19
+MATRIX_SOAK_ARGV = [
+    "--minutes", "0", "--nodes", "6", "--rounds", "8", "--dataset", "mnist",
+    "--device", "cuda", "--migrations-per-cycle", "1", "--rolling-upgrade",
+    "0", "--upgrade-period", "2"]
 HIVE_DENSITY_N = 100
 HIVE_CNN_N = 100
 HIVE_CNN_ROUNDS = 1  # of 2 until the acceptance phase needed the time
@@ -2275,6 +2364,11 @@ def free_base(port: int, n: int) -> int:
         time.sleep(1.0)
 
 
+def trainer_devices(agents) -> list:
+    """The devices the agents' Trainers hold their data on."""
+    return sorted({str(a.trainer.x_test.device) for a in agents})
+
+
 def live_cluster(name: str, port: int, timeouts: dict, peers: int,
                  classes: dict | None = None, agent_kw: dict | None = None,
                  **kw) -> dict:
@@ -2331,7 +2425,7 @@ def live_cluster(name: str, port: int, timeouts: dict, peers: int,
            "dataset": cfgs[0].dataset,
            "model": cfgs[0].model_name or "default",
            "params": agents[0].trainer.num_params,
-           "devices": sorted({str(a.trainer.x_test.device) for a in agents}),
+           "devices": trainer_devices(agents),
            "secure_agg": cfgs[0].secure_agg,
            "device_crypto": cfgs[0].device_crypto,
            "chains_equal": all(d == dumps[0] for d in dumps),
@@ -2788,7 +2882,12 @@ class PeerRecorder:
     it, each [msg_type, attempt, the fault the plan drew for that attempt,
     the error, whether the peer's newest incarnation still served]. A
     call draws its fault in its own task just before it fails, so the
-    task's last draw is the failed attempt's."""
+    task's last draw is the failed attempt's. `modules` are the drivers
+    that bound the class at their import (`eval_attack_matrix`): their
+    `PeerAgent` is swapped too."""
+
+    def __init__(self, *modules):
+        self.modules = modules
 
     def __enter__(self):
         import asyncio
@@ -2834,11 +2933,15 @@ class PeerRecorder:
                 if self.counters.get("breaker_open", 0) > opens:
                     self.opened.append([peer_id, self.streaks.pop(peer_id)])
 
-        peer.PeerAgent = Recorded
+        self.bound = [(m, m.PeerAgent) for m in self.modules]
+        for m in (peer, *self.modules):
+            m.PeerAgent = Recorded
         return self
 
     def __exit__(self, *exc):
         self.mod.PeerAgent = self.orig
+        for m, cls in self.bound:
+            m.PeerAgent = cls
 
 
 def chaos_cell(name: str, nodes: int, flags: list, prewarm_b3: dict) -> tuple:
@@ -3412,6 +3515,27 @@ def drill_cfg(i: int, n: int, port: int, drill: str, **kw):
     return BiscottiConfig(**base)
 
 
+def drill_cluster(cfgs, during=None) -> tuple:
+    """Port PeerAgents of `cfgs` on the card (device None: the GPU) in one
+    event loop, run to the end: (agents, results, the run's start on the
+    wall clock, what `during(agents)` returned: a coroutine awaited beside
+    the run, as a mid-run poller)."""
+    import asyncio
+
+    from biscotti_tpu_torch.runtime.peer import PeerAgent
+
+    async def go():
+        agents = [PeerAgent(c) for c in cfgs]
+        run = asyncio.ensure_future(
+            asyncio.gather(*(a.run() for a in agents)))
+        side = await during(agents) if during is not None else None
+        return agents, await run, side
+
+    t_start = time.time()
+    agents, results, side = asyncio.run(go())
+    return agents, results, t_start, side
+
+
 def kernel_launches() -> dict:
     """Every hand kernel's launch counter as it stands: B1, B2, B3a-B3d."""
     from biscotti_tpu_torch.crypto.kernels import cuda_ladder as cl
@@ -3683,8 +3807,7 @@ def acceptance_rebalance() -> dict:
         round0_events=round_events(made.values(), 0, t_start),
         stakes=len(stake), min_stake=min(stake.values()),
         default_stake=cfg.default_stake,
-        devices=sorted({str(a.trainer.x_test.device)
-                        for a in made.values()}))
+        devices=trainer_devices(made.values()))
     emit("acceptance", **row)
     if not (equal and real >= 1 and len(ctl.moves_applied) >= 2
             and all(src == "host0" and dst == "host1"
@@ -3704,10 +3827,7 @@ def acceptance_rebalance() -> dict:
 def acceptance_slow_fleet() -> dict:
     """acceptance (d): 10 mnist peers, the tee preset on 2 of them
     (test_stragglers.py:522)."""
-    import asyncio
-
     from biscotti_tpu_torch.runtime.faults import FaultPlan
-    from biscotti_tpu_torch.runtime.peer import PeerAgent
     from biscotti_tpu_torch.tools import chaos, obs
 
     t0, before = time.perf_counter(), kernel_launches()
@@ -3720,17 +3840,10 @@ def acceptance_slow_fleet() -> dict:
     slow_ids = sorted(plan.slow_table(n))
     port = free_base(ACCEPT_BASE_PORT + 500, n)
 
-    async def go():
-        agents = [PeerAgent(drill_cfg(i, n, port, "slow_fleet",
-                                      fault_plan=plan, secure_agg=True,
-                                      verification=True, batch_size=10,
-                                      adaptive_deadlines=True,
-                                      deadline_floor_s=1.0, max_iterations=5))
-                  for i in range(n)]
-        return agents, await asyncio.gather(*(a.run() for a in agents))
-
-    t_start = time.time()
-    agents, results = asyncio.run(go())
+    agents, results, t_start, _ = drill_cluster([drill_cfg(
+        i, n, port, "slow_fleet", fault_plan=plan, secure_agg=True,
+        verification=True, batch_size=10, adaptive_deadlines=True,
+        deadline_floor_s=1.0, max_iterations=5) for i in range(n)])
     equal, common, real = chaos.chain_oracle(results)
     stake = agents[0].chain.latest_stake_map()
     merged = obs.merge_snapshots([r["telemetry"] for r in results])
@@ -3749,7 +3862,7 @@ def acceptance_slow_fleet() -> dict:
         adaptive_peers=merged["stragglers"]["adaptive_peers"],
         table_rows=[ln for ln in table.splitlines()
                     if "stragglers:" in ln or "waiting-on" in ln],
-        devices=sorted({str(a.trainer.x_test.device) for a in agents}))
+        devices=trainer_devices(agents))
     emit("acceptance", **row)
     if not (equal and common >= 3 and real >= 2
             and not any(row["opens_toward_slow"].values())
@@ -3838,8 +3951,7 @@ def acceptance_churn_verdict() -> dict:
         poisoned=sorted(poisoned),
         accepted_poisoned=accepted_poisoned(churn_anchor),
         accepted_poisoned_plain=accepted_poisoned(plain_anchor),
-        devices=sorted({str(a.trainer.x_test.device)
-                        for a in (churn_anchor, plain_anchor)}))
+        devices=trainer_devices((churn_anchor, plain_anchor)))
     emit("acceptance", **row)
     if not (equal and settled >= rounds // 2 and real >= 1 and replayed
             and pequal and preal >= 1
@@ -3917,6 +4029,335 @@ def acceptance_phase(dev, prewarm_b3: dict,
     return {"b1_launches": sum(r["launches"]["B1"] for r in rows.values()),
             "b2_launches": guard["b2_launches"],
             "b3_launches": guard["b3_launches"], "seconds": seconds}
+
+
+def matrix_chaos() -> dict:
+    """matrices (a): the chaos matrix (test_faults.py:521), each of its
+    five FaultPlans (seed 29) on 4 peers for 4 rounds: the settled prefix
+    equal over a common height of 2 or more with a real block, and a
+    fault injected, in every case."""
+    from biscotti_tpu_torch.runtime.faults import FaultPlan
+    from biscotti_tpu_torch.tools import chaos
+
+    t0, before = time.perf_counter(), kernel_launches()
+    n, cases = 4, {}
+    for case, kw in MATRIX_CHAOS_CASES.items():
+        plan = FaultPlan(seed=MATRIX_CHAOS_SEED, **kw)
+        port = free_base(MATRIX_BASE_PORT, n)
+        t_case = time.perf_counter()
+        agents, results, t_start, _ = drill_cluster(
+            [drill_cfg(i, n, port, "chaos_matrix", fault_plan=plan,
+                       max_iterations=4) for i in range(n)])
+        equal, common, real = chaos.chain_oracle(results)
+        counters = summed_counters(results)
+        cases[case] = {
+            "plan": kw, "wall_s": time.perf_counter() - t_case,
+            "round_wall_s": round_walls(t_start, log_stamps(results[0])),
+            "prefix_equal": equal, "common": common, "real_blocks": real,
+            "faults": chaos.tally_faults(results),
+            "rpc_retries": counters.get("rpc_retry", 0),
+            "breaker_opens": counters.get("breaker_open", 0),
+            "devices": trainer_devices(agents)}
+    row = drill_line("a_chaos_matrix", t0, time.time(), [], before,
+                     peers=n, fault_seed=MATRIX_CHAOS_SEED, cases=cases)
+    emit("matrices", **row)
+    bad = [k for k, c in cases.items()
+           if not (c["prefix_equal"] and c["common"] >= 2
+                   and c["real_blocks"] >= 1 and c["faults"]
+                   and c["devices"] == ["cuda:0"])]
+    if bad:
+        raise AssertionError(f"matrices (a): the settled prefix parted, "
+                             f"reached no height 2, held no real block, no "
+                             f"fault was injected or a peer left the card in "
+                             f"{bad}: {row}")
+    return row
+
+
+def matrix_flood() -> dict:
+    """matrices (b): the mnist flood acceptance (test_admission.py:597): 4
+    peers with node 1 flooding 50x under the TIGHT admission plan, then
+    the same cluster with admission and no flood, then with neither."""
+    from biscotti_tpu_torch.runtime.admission import AdmissionPlan
+    from biscotti_tpu_torch.runtime.faults import FaultPlan
+    from biscotti_tpu_torch.tools import chaos
+
+    t0, before = time.perf_counter(), kernel_launches()
+    n, flooder = 4, MATRIX_FLOOD_NODE
+    tight = AdmissionPlan(enabled=True, update_rate=8.0, bulk_rate=6.0,
+                          control_rate=16.0)
+
+    def run(name: str, flood: int, admission) -> dict:
+        port = free_base(MATRIX_BASE_PORT + 100, n)
+        plan = FaultPlan(seed=13)
+        flood_plan = FaultPlan(seed=13, flood=flood)
+        t_run = time.perf_counter()
+        agents, results, t_start, _ = drill_cluster([drill_cfg(
+            i, n, port, "flood", admission_plan=admission, max_iterations=3,
+            fault_plan=flood_plan if flood and i == flooder else plan)
+            for i in range(n)])
+        equal, common, real = chaos.chain_oracle(results)
+        snaps = [r["telemetry"] for r in results]
+        return {
+            "run": name, "wall_s": time.perf_counter() - t_run,
+            "round_wall_s": round_walls(t_start, log_stamps(results[0])),
+            "prefix_equal": equal, "common": common, "real_blocks": real,
+            "faults": chaos.tally_faults(results),
+            "sheds": [s["admission"]["shed_total"] for s in snaps],
+            "honest_sheds": sum(s["admission"]["shed_total"] for s in snaps
+                                if s["node"] != flooder),
+            "peaks": [[s["node"], s["admission"]["inflight_peak"],
+                       s["admission"]["caps"]["global_inflight"],
+                       s["admission"]["parked_peak"],
+                       s["admission"]["caps"]["max_parked"]]
+                      for s in snaps],
+            # every breaker open between honest peers
+            "honest_opens": [[s["node"], pid, h.get("opens", 0)]
+                             for s in snaps if s["node"] != flooder
+                             for pid, h in s["health"].items()
+                             if int(pid) != flooder and h.get("opens", 0)],
+            "breaker_open": [r["telemetry"]["counters"].get("breaker_open", 0)
+                             for r in results],
+            "final_error": results[0]["final_error"],
+            "devices": trainer_devices(agents)}
+
+    runs = [run("flood", MATRIX_FLOOD_X, tight), run("clean", 0, tight),
+            run("baseline", 0, AdmissionPlan())]
+    flood, clean, base = runs
+    gap = abs(clean["final_error"] - base["final_error"])
+    row = drill_line("b_matrix_flood", t0, time.time(), [], before,
+                     peers=n, flooder=flooder, flood_x=MATRIX_FLOOD_X,
+                     runs=runs, error_gap=gap)
+    emit("matrices", **row)
+    if not (flood["prefix_equal"] and flood["common"] >= 2
+            and flood["real_blocks"] >= 1 and flood["honest_sheds"] > 0
+            and all(inf <= inf_cap and park <= park_cap
+                    for _, inf, inf_cap, park, park_cap in flood["peaks"])
+            and not flood["honest_opens"]):
+        raise AssertionError(f"matrices (b): the flood run parted, held no "
+                             f"real block in a common prefix of 2, shed "
+                             f"nothing on an honest peer, passed a cap or "
+                             f"opened a breaker between honest peers: "
+                             f"{flood}")
+    if not (clean["prefix_equal"] and clean["real_blocks"] >= 1
+            and not any(clean["sheds"]) and not any(clean["breaker_open"])
+            and base["prefix_equal"] and base["real_blocks"] >= 1
+            and gap < MATRIX_ERROR_GAP):
+        raise AssertionError(f"matrices (b): the clean run shed or opened a "
+                             f"breaker, a run without the flood parted or "
+                             f"held no real block, or the final errors lie "
+                             f"{gap} apart: {clean} {base}")
+    if any(r["devices"] != ["cuda:0"] for r in runs):
+        raise AssertionError(f"matrices (b): a peer left the card: {row}")
+    return row
+
+
+def matrix_attack() -> dict:
+    """matrices (c): the attack-matrix driver (test_adversary.py:636),
+    `eval.eval_attack_matrix.main` over {static, hug} x {NONE, KRUM} on 5
+    mnist peers for 3 rounds, its artifacts in a temporary directory."""
+    import io
+    import tempfile
+
+    from biscotti_tpu_torch.eval import eval_attack_matrix as am
+
+    t0, before = time.perf_counter(), kernel_launches()
+    cells = 4
+    # each cell takes the next block of nodes + 2 ports
+    port = free_base(MATRIX_BASE_PORT + 200, cells * 7)
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = MATRIX_ATTACK_ARGV + ["--base-port", str(port), "--out", tmp]
+        with PeerRecorder(am) as rec, \
+                contextlib.redirect_stdout(io.StringIO()):
+            rc = am.main(argv)
+        art = json.loads(open(os.path.join(tmp, "am_smoke.json")).read())
+        csv = os.path.exists(os.path.join(tmp, "am_smoke.csv"))
+    rows = art["rows"]
+    columns = {"campaign", "defense", "secure_agg", "final_error",
+               "chains_equal", "survived", "failed", "verdict", "replay"}
+    row = drill_line(
+        "c_matrix_attack", t0, time.time(), [], before, argv=argv, rc=rc,
+        csv_written=csv, agents=len(rec.agents),
+        devices=trainer_devices(rec.agents),
+        rows=[{k: r.get(k) for k in (
+            "campaign", "defense", "secure_agg", "final_error",
+            "chains_equal", "settled", "real_blocks", "survived", "failed",
+            "accepted_poisoned_n", "replay", "error")} for r in rows])
+    emit("matrices", **row)
+    if not (rc == 0 and len(rows) == cells and csv and all(
+            columns <= set(r) and r["failed"] == (0 if r["survived"] else 1)
+            and "tools.chaos" in r["replay"]
+            and (r["campaign"] == "none" or not r["survived"]
+                 or r["verdict"]["n_accepted_poisoned"] == 0)
+            for r in rows)):
+        raise AssertionError(f"matrices (c): the attack matrix failed (rc, "
+                             f"4 rows with the columns, the failed bit, the "
+                             f"replay, a survivor with a poisoned record "
+                             f"accepted, or no csv): {row}")
+    if row["devices"] != ["cuda:0"]:
+        raise AssertionError(f"matrices (c): a peer left the card: {row}")
+    return row
+
+
+def matrix_trace_overlay(prewarm_b3: dict) -> dict:
+    """matrices (d): the traced overlay under chaos (test_tracing.py:532):
+    8 secure-aggregation peers with verification, 2 miners, the overlay in
+    groups of 4 and a FaultPlan, 3 rounds, armed on the card, polled mid-
+    run by `tools.trace_round.poll_cluster`."""
+    from biscotti_tpu_torch.crypto.kernels import cuda_ladder as cl
+    from biscotti_tpu_torch.crypto.kernels import cuda_validate as cv
+    from biscotti_tpu_torch.runtime.faults import FaultPlan
+    from biscotti_tpu_torch.tools import chaos
+    from biscotti_tpu_torch.tools import trace_round as tr
+
+    # crypto_switch sets B2's and B3's counters to 0 as the cell starts
+    t0 = time.perf_counter()
+    before = {k: v if k == "B1" else 0 for k, v in kernel_launches().items()}
+    n = MATRIX_TRACE_PEERS
+    port = free_base(MATRIX_BASE_PORT + 300, n)
+    plan = FaultPlan(**MATRIX_TRACE_PLAN)
+    cfgs = [drill_cfg(i, n, port, "trace_overlay", num_miners=2,
+                      secure_agg=True, verification=True, trace=True,
+                      overlay=True, overlay_group=4, max_iterations=3,
+                      fault_plan=plan, device_crypto=True)
+            for i in range(n)]
+
+    async def poll(agents):
+        return await tr.poll_cluster("127.0.0.1", [port + i for i in range(n)],
+                                     **MATRIX_TRACE_POLL)
+
+    with crypto_switch(arm=True):
+        agents, results, t_start, events = drill_cluster(cfgs, poll)
+        b3 = cl.launches()
+    # every armed peer prewarms once before its first round
+    b3_rounds = {k: v - n * prewarm_b3[k] for k, v in b3.items()}
+    recon = tr.reconstruct(events, min_nodes=MATRIX_TRACE_POLL["min_nodes"])
+    complete = [r for r in recon["rounds"] if r["complete"]]
+    best = max(complete, key=lambda r: r["critical"]["coverage"],
+               default=None)
+    obj = tr.chrome_trace(recon["traces"])
+    tr.validate_chrome(obj)  # raises on a malformed trace
+    overlay = {k: sum(r["telemetry"]["overlay"][k] for r in results)
+               for k in ("aggregated", "relayed", "direct", "fallback")}
+    cp = best["critical"] if best else None
+    row = drill_line(
+        "d_matrix_trace_overlay", t0, t_start, log_stamps(results[0]), before,
+        peers=n, polled_events=len(events),
+        rounds_reconstructed=len(recon["rounds"]), complete_rounds=len(complete),
+        best=best and {"round": best["round"], "nodes": best["nodes"],
+                       "critical_nodes": cp["nodes"],
+                       "coverage": cp["coverage"], "wall_s": cp["wall_s"],
+                       "segments": cp["segments"]},
+        chrome_x_events=sum(e["ph"] == "X" for e in obj["traceEvents"]),
+        chains_equal=all(r["chain_dump"] == results[0]["chain_dump"]
+                         for r in results),
+        real_blocks=sum("ndeltas=0" not in ln for ln in
+                        results[0]["chain_dump"].splitlines()[1:]),
+        overlay=overlay, faults=chaos.tally_faults(results),
+        rpc_retries=summed_counters(results).get("rpc_retry", 0),
+        b3_launches_with_prewarms=b3, devices=trainer_devices(agents))
+    # B2's launches are its count under the switch; B3's beyond the
+    # prewarms
+    row["launches"].update({kid: b3_rounds[wrapper]
+                            for kid, (_, wrapper, _) in LADDER.items()})
+    row["launches"]["B2"] = cv.oncurve_mask.launches
+    emit("matrices", **row)
+    if not row["chains_equal"]:
+        raise AssertionError(f"matrices (d): the chains differ: {row}")
+    if not (cp and len(cp["nodes"]) >= 2 and len(best["nodes"]) >= 3
+            and cp["coverage"] >= 0.8
+            and abs(sum(cp["segments"].values()) - cp["wall_s"]) < 1e-3
+            and row["chrome_x_events"]):
+        raise AssertionError(f"matrices (d): no complete round spans 3 "
+                             f"peers with a critical path over 2 covering "
+                             f"80 % of its wall time and summing to it, or "
+                             f"the chrome trace has no X event: {row}")
+    if min(b3_rounds[k] for k in ("msm_ladder", "fixed_walk",
+                                  "point_add")) < 1:
+        raise AssertionError(f"matrices (d)'s rounds did not launch B3a, B3b "
+                             f"and B3d beyond the prewarms: {b3_rounds}")
+    if row["devices"] != ["cuda:0"]:
+        raise AssertionError(f"matrices (d): a peer left the card: {row}")
+    return row
+
+
+def matrix_soak() -> dict:
+    """matrices (e): one full cycle of `tools.soak.main` on the card: 6
+    mnist peers for 8 rounds under the CLI's churn, roleflood campaign,
+    stragglers, drops and SLO limits, one migration and a rolling upgrade
+    from protocol row 0."""
+    import io
+    import tempfile
+
+    from biscotti_tpu_torch.tools import soak
+
+    t0, before = time.perf_counter(), kernel_launches()
+    nodes = int(MATRIX_SOAK_ARGV[MATRIX_SOAK_ARGV.index("--nodes") + 1])
+    port = free_base(MATRIX_BASE_PORT + 400, nodes)  # cycle 0's block
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "soak.json")
+        argv = MATRIX_SOAK_ARGV + ["--base-port", str(port), "--out", path]
+        with PeerRecorder() as rec, contextlib.redirect_stdout(io.StringIO()):
+            rc = soak.main(argv)
+        art = json.loads(open(path).read())
+    cycle = art["cycles"][0]
+    row = drill_line(
+        "e_matrix_soak", t0, time.time(), [], before, argv=argv, rc=rc,
+        schema=art["schema"], cycles_run=art["cycles_run"],
+        elapsed_s=art["elapsed_s"], prefix_held=art["prefix_held"],
+        settled_rounds=art["settled_rounds"],
+        real_blocks=cycle["real_blocks"], gates=art["gates"],
+        p50_round_latency_s=art["p50_round_latency_s"],
+        migrations=len(cycle["migrations"]),
+        migrations_restored=cycle["migrations_restored"],
+        upgrades_applied=cycle["upgrades_applied"],
+        churn_events_applied=cycle["churn_events_applied"],
+        sheds=cycle["sheds"], stalls=cycle["stalls"], faults=cycle["faults"],
+        rss_series_bytes=art["rss_series_bytes"],
+        agents=len(rec.agents), devices=trainer_devices(rec.agents))
+    emit("matrices", **row)
+    # ROADMAP C19: one cycle's RSS rise (new incarnations, the chains) over
+    # its ~20 s, scaled to an hour, passes the drift gate's 512 MiB/h only
+    # if RSS stays within ~1 MB; the reference's soak fails it the same
+    # way on this cycle, so the cell holds every other gate and reports it
+    held = [k for k, g in art["gates"].items()
+            if k != SOAK_DRIFT_GATE and not g["pass"]]
+    if not (art["prefix_held"] and not held
+            and art["cycles_run"] == 1 and art["schema"] == "soak-v1"
+            and cycle["real_blocks"] >= 1):
+        raise AssertionError(f"matrices (e): the soak failed (the surviving-"
+                             f"prefix oracle with a real block, an SLO gate "
+                             f"other than the RSS drift, one cycle, the "
+                             f"schema): {row}")
+    if row["devices"] != ["cuda:0"]:
+        raise AssertionError(f"matrices (e): a peer left the card: {row}")
+    return row
+
+
+def matrices_phase(dev, prewarm_b3: dict, cells: str = MATRIX_CELLS) -> dict:
+    """The reference's last slow drills and the port's soak on the card,
+    the `cells` of (a)-(e) of the module docstring; returns the phase's
+    row with every kernel's launches over its cells (B3's beyond the
+    peers' prewarms)."""
+    import torch
+
+    from biscotti_tpu_torch.config import BiscottiConfig
+
+    drills = {"a": matrix_chaos, "b": matrix_flood, "c": matrix_attack,
+              "d": lambda: matrix_trace_overlay(prewarm_b3), "e": matrix_soak}
+    t_phase = time.perf_counter()
+    warm_cell(BiscottiConfig(dataset="mnist", batch_size=8))
+    rows = {k: drills[k]() for k in cells}
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_phase
+    launches = {kid: sum(r["launches"][kid] for r in rows.values())
+                for kid in kernel_launches()}
+    emit("matrices", cell="phase", seconds=seconds,
+         cells_s={k: r["seconds"] for k, r in rows.items()}, launches=launches,
+         b1_note="B1 0: every verifier pool here is under 512")
+    return {"b1_launches": launches["B1"], "b2_launches": launches["B2"],
+            "b3_launches": {wrapper: launches[kid]
+                            for kid, (_, wrapper, _) in LADDER.items()},
+            "seconds": seconds}
 
 
 def hive_cell(name: str, cfg, pool_hook: bool = False):
@@ -4527,11 +4968,13 @@ def entry_phase() -> dict:
 
 
 def ladder_line(crypto: dict, secagg: dict, live: dict, chaos: dict,
-                protocol: dict, acceptance: dict, drivers: dict):
+                protocol: dict, acceptance: dict, matrices: dict,
+                drivers: dict):
     """The kernels line's rows of B3a-B3d: launches on the main paths by
     phase (the crypto intake, secagg's armed intakes, the rounds of live
-    (b), (d) and (e), of chaos (a), of protocol (a) and (b) and of
-    acceptance (a) beyond the peers' prewarms, drivers (c)'s msm), and
+    (b), (d) and (e), of chaos (a), of protocol (a) and (b), of
+    acceptance (a) and of matrices (d) beyond the peers' prewarms,
+    drivers (c)'s msm), and
     the times and
     bound at the shape the settle gives each (B3a's 8,192 lanes, B3b's
     Pedersen comb at 1 x 512, B3c's verdicts of 64 x 7,850 cells, the
@@ -4546,6 +4989,7 @@ def ladder_line(crypto: dict, secagg: dict, live: dict, chaos: dict,
                     "chaos": chaos["b3_launches"][wrapper],
                     "protocol": protocol["b3_launches"][wrapper],
                     "acceptance": acceptance["b3_launches"][wrapper],
+                    "matrices": matrices["b3_launches"][wrapper],
                     "drivers": drivers["b3_crypto_kernel"][wrapper]}
         timed = crypto["ladder"][kid]
         main = timed[-1] if kid == "B3b" else timed[0]
@@ -4578,12 +5022,16 @@ def card_smi() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
-def acceptance_alone(cells: str) -> int:
-    """`python3 chip_smoke.py acceptance [CELLS]`: the three libraries
-    built, one prewarm's B3 launches at the mnist width taken (the secagg
-    phase's count), then the acceptance phase's `cells` (letters of
-    (a)-(f), default ACCEPT_CELLS) alone on the card and the card's name
-    and power limit."""
+ALONE = {"acceptance": (acceptance_phase, ACCEPT_CELLS),
+         "matrices": (matrices_phase, MATRIX_CELLS)}
+
+
+def phase_alone(phase: str, cells: str) -> int:
+    """`python3 chip_smoke.py acceptance|matrices [CELLS]`: the three
+    libraries built, one prewarm's B3 launches at the mnist width taken
+    (the secagg phase's count), then the phase's `cells` (its letters of
+    the module docstring, default ACCEPT_CELLS or MATRIX_CELLS) alone on
+    the card and the card's name and power limit."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4601,7 +5049,8 @@ def acceptance_alone(cells: str) -> int:
     with crypto_switch(arm=True):
         kernels.prewarm(7850)
         prewarm_b3 = cl.launches()
-    out = acceptance_phase(torch.device("cuda", 0), prewarm_b3, cells)
+    run, default = ALONE[phase]
+    out = run(torch.device("cuda", 0), prewarm_b3, cells or default)
     print(json.dumps(out), flush=True)
     print(smi, flush=True)
     return 0
@@ -4884,6 +5333,9 @@ def main() -> int:
     # acceptance: the reference's slow acceptance drills on the card ------
     acceptance = acceptance_phase(dev, secagg["b3_launches_prewarm"])
 
+    # matrices: the last slow drills and one soak cycle on the card --------
+    matrices = matrices_phase(dev, secagg["b3_launches_prewarm"])
+
     # hive: slice 7, co-hosted port peers on the card -----------------------
     hive = hive_phase(dev)
 
@@ -4903,7 +5355,8 @@ def main() -> int:
         "replaces": "biscotti_tpu/ops/krum_pallas.py:72",
         "launches": (main_launches + defenses["b1_launches"]
                      + cnn["b1_launches"] + ledger["b1_launches"]
-                     + acceptance["b1_launches"] + hive["b1_launches"]
+                     + acceptance["b1_launches"] + matrices["b1_launches"]
+                     + hive["b1_launches"]
                      + drivers["b1_krum_kernel"] + drivers["b1_sim_scale"]
                      + mesh["b1_launches"]),
         "launches_by_phase": {"main": main_launches,
@@ -4911,6 +5364,7 @@ def main() -> int:
                               "cnn": cnn["b1_launches"],
                               "ledger": ledger["b1_launches"],
                               "acceptance": acceptance["b1_launches"],
+                              "matrices": matrices["b1_launches"],
                               "hive": hive["b1_launches"],
                               "drivers_krum_kernel": drivers["b1_krum_kernel"],
                               "drivers_sim_scale": drivers["b1_sim_scale"],
@@ -4943,6 +5397,7 @@ def main() -> int:
                      + live["b2_launches"] + chaos["b2_launches"]
                      + protocol["b2_launches"]
                      + acceptance["b2_launches"]
+                     + matrices["b2_launches"]
                      + drivers["b2_crypto_kernel"]),
         "launches_by_phase": {"crypto": crypto["oncurve_launches"],
                               "secagg": secagg["b2_launches"],
@@ -4950,6 +5405,7 @@ def main() -> int:
                               "chaos": chaos["b2_launches"],
                               "protocol": protocol["b2_launches"],
                               "acceptance": acceptance["b2_launches"],
+                              "matrices": matrices["b2_launches"],
                               "drivers": drivers["b2_crypto_kernel"]},
         "max_abs_err": max(b2["max_abs_err"],
                            protocol["shapes"]["B2"]["max_abs_err"]),
@@ -4959,7 +5415,8 @@ def main() -> int:
         "at_the_cifar_cnn_fold": {k: protocol["shapes"]["B2"][k] for k in (
             "shape", "ms", "kernel_only_ms", "plain_ms", "bound_ms",
             "bound_by")}}] + ladder_line(crypto, secagg, live, chaos,
-                                          protocol, acceptance, drivers)}),
+                                          protocol, acceptance, matrices,
+                                          drivers)}),
         flush=True)
     print(smi, flush=True)  # the card's name and power limit, verbatim
     print(json.dumps({"ok": True, "device": {
@@ -4969,7 +5426,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["acceptance"]:
-        raise SystemExit(acceptance_alone(
-            "".join(sys.argv[2:]) or ACCEPT_CELLS))
+    if sys.argv[1:2] and sys.argv[1] in ALONE:
+        raise SystemExit(phase_alone(sys.argv[1], "".join(sys.argv[2:])))
     raise SystemExit(main())
