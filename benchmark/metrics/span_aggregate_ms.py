@@ -1,0 +1,18 @@
+"""span_aggregate_ms: the device ms of the program's `sim.aggregate` span (its
+`dev_s`, entry event to exit event), the median over the spanned
+stretch's rounds dispatched ahead (benchmark/spans.py)."""
+
+from benchmark import spans
+
+UNIT = "ms"
+LAYER = "aggregation"
+MOVES = "round_ms"
+NAME = __name__.rsplit(".", 1)[-1]
+
+
+def probe(run):
+    return spans.median_ms(spans.events(run), "sim.aggregate", "dev_s")
+
+
+def read(run):
+    return run.probes.get(NAME)

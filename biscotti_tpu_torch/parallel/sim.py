@@ -13,6 +13,14 @@ One federated round for all peers at once:
     w'       = w + Σ maskᵢ·deltaᵢ    — miner aggregation (ref honest.go:360-375),
                                        or the trimmed mean
     stake'   = ±STAKE_UNIT scatter   — ledger bookkeeping (ref honest.go:414-419)
+    err      = error_flat            — the test split's error
+
+With a `Telemetry` attached (`Simulator(..., telemetry=)`), `round_step`
+opens the span `sim.round` and, inside it in this order, `sim.draws`,
+`sim.local_step`, `sim.defense`, `sim.aggregate` and `sim.eval`; the
+stake bookkeeping is `sim.round`'s own time. A device-timed Telemetry
+times each on the card too, without a synchronise (docs/TORCH_SIM_SPANS.md).
+Without one every span is one shared no-op context.
 
 The round is split in two: `draw_round` makes every random choice from the
 simulator's `torch.Generator`, and `round_step_from_draws` is pure and
@@ -38,6 +46,7 @@ reference's `device_put` with `P(axis)`, sim.py:467-470).
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple, Union
@@ -47,7 +56,7 @@ import torch
 
 from biscotti_tpu_torch.config import BiscottiConfig, Defense
 from biscotti_tpu_torch.data import datasets as ds
-from biscotti_tpu_torch.device import resolve_device, synchronize
+from biscotti_tpu_torch.device import resolve_device
 from biscotti_tpu_torch.models.base import Model, fp32_math
 from biscotti_tpu_torch.models.trainer import (local_step_fn, sample_batch,
                                                stream_seed)
@@ -61,6 +70,8 @@ from biscotti_tpu_torch.ops.roni import roni_accept_mask
 from biscotti_tpu_torch.parallel.mesh import (all_gather, local_slice,
                                              mesh_device, psum)
 from biscotti_tpu_torch.tools.verdicts import poisoned_ids
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 @dataclass
@@ -142,13 +153,15 @@ class Simulator:
     def __init__(self, cfg: BiscottiConfig,
                  device: Optional[Union[str, torch.device]] = None,
                  model: Optional[Model] = None, metrics=None,
-                 peers: Optional[slice] = None):
+                 peers: Optional[slice] = None, telemetry=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         # optional telemetry registry (telemetry.MetricsRegistry): run()
         # then feeds the reference's per-round histogram and height/error
         # gauges (the CLI's --metrics-out)
         self.metrics = metrics
+        # optional telemetry.Telemetry: round_step's layer spans
+        self.telemetry = telemetry
         self.model = model or model_for_dataset(cfg.dataset, cfg.model_name)
         self.mode = "sgd" if self.model.name == "logreg" else "grad"
         self.num_params = self.model.num_params
@@ -195,6 +208,10 @@ class Simulator:
                 "mask to carry the drops")
 
     # ------------------------------------------------------------- the round
+
+    def _span(self, name: str, it: Optional[int]):
+        tel = self.telemetry
+        return _NO_SPAN if tel is None else tel.span(name, it=it)
 
     def _whole(self, what: str) -> None:
         """Raise unless this Simulator holds every peer: `what` indexes x
@@ -264,32 +281,41 @@ class Simulator:
                                         self.y[rows, batch_idx])
         return deltas, deltas + noise
 
-    def round_step_from_draws(self, w, stake, cidx, batch_idx, noise, keep):
+    def round_step_from_draws(self, w, stake, cidx, batch_idx, noise, keep,
+                              it: Optional[int] = None):
         """One round from its draws; pure. Returns (w_next, stake_next, mask,
         err). A dropped frame (keep False) was scored by the verifiers but
-        joins no aggregate and moves no stake."""
+        joins no aggregate and moves no stake. `it` is the round that the
+        layer spans carry."""
         self._whole("round_step_from_draws")
         cfg = self.cfg
         with fp32_math():
-            deltas, noised = self.local_updates(w, cidx, batch_idx, noise)
-            mask = defense_mask(self.defense, self.model, w, noised,
-                                self.x_val, self.y_val, cfg.roni_threshold,
-                                default_num_adversaries(cidx.shape[0]))
+            with self._span("sim.local_step", it):
+                deltas, noised = self.local_updates(w, cidx, batch_idx, noise)
+            with self._span("sim.defense", it):
+                mask = defense_mask(self.defense, self.model, w, noised,
+                                    self.x_val, self.y_val, cfg.roni_threshold,
+                                    default_num_adversaries(cidx.shape[0]))
             unit = torch.full_like(cidx, cfg.stake_unit, dtype=stake.dtype)
             delta_stake = torch.where(mask, unit, -unit)
             mask = mask & keep
             delta_stake = torch.where(keep, delta_stake, torch.zeros_like(unit))
-            w_next = w + masked_aggregate(mask, deltas, noised, cfg.dp_in_model,
-                                          self.defense, cfg.trim_fraction)
+            with self._span("sim.aggregate", it):
+                w_next = w + masked_aggregate(mask, deltas, noised,
+                                              cfg.dp_in_model, self.defense,
+                                              cfg.trim_fraction)
             stake_next = stake.index_add(0, cidx, delta_stake)
-            err = self.model.error_flat(w_next, self.x_val, self.y_val)
+            with self._span("sim.eval", it):
+                err = self.model.error_flat(w_next, self.x_val, self.y_val)
         return w_next, stake_next, mask, err
 
     def round_step(self, w: torch.Tensor, stake: torch.Tensor, it: int,
                    seed: Optional[int] = None):
         self._whole("round_step")
-        return self.round_step_from_draws(
-            w, stake, *self.draw_round(self.gen, it, seed))
+        with self._span("sim.round", it):
+            with self._span("sim.draws", it):
+                draws = self.draw_round(self.gen, it, seed)
+            return self.round_step_from_draws(w, stake, *draws, it)
 
     # ------------------------------------------------------------------ run
 
@@ -308,25 +334,54 @@ class Simulator:
         w, stake = self.init_state()
         logs: List[RoundLog] = []
         m = self.metrics
-        for it in range(num_rounds):
-            t0 = time.perf_counter()
-            w, stake, mask, err = self.round_step(w, stake, it)
-            if m is not None:
-                synchronize(self.device)  # charge the round its device time
-                m.histogram("biscotti_sim_round_seconds",
-                            "simulator device-round wall clock").observe(
-                    time.perf_counter() - t0)
-                m.gauge("biscotti_sim_round_height",
-                        "simulator rounds completed").set(it + 1)
-            if it % log_every == 0 or it == num_rounds - 1:
-                e = float(err)
-                logs.append(RoundLog(it, e, time.time(), int(mask.sum())))
+        own = m is not None and self.telemetry is None
+        if own:
+            # the round histogram reads the sim.round spans
+            from biscotti_tpu_torch.telemetry import Telemetry
+
+            self.telemetry = Telemetry(device=self.device)
+        seen = self.telemetry.recorder.seq if m is not None else 0
+        try:
+            for it in range(num_rounds):
+                w, stake, mask, err = self.round_step(w, stake, it)
+                logged = it % log_every == 0 or it == num_rounds - 1
+                e = float(err) if logged else 0.0
                 if m is not None:
-                    m.gauge("biscotti_sim_error",
-                            "simulator latest test error").set(e)
-                if stop_at_convergence and e < self.cfg.convergence_error:
-                    break
+                    seen = self._observe_rounds(m, seen)
+                    m.gauge("biscotti_sim_round_height",
+                            "simulator rounds completed").set(it + 1)
+                if logged:
+                    logs.append(RoundLog(it, e, time.time(), int(mask.sum())))
+                    if m is not None:
+                        m.gauge("biscotti_sim_error",
+                                "simulator latest test error").set(e)
+                    if stop_at_convergence and e < self.cfg.convergence_error:
+                        break
+        finally:
+            if own:
+                self.telemetry = None
         return w, stake, logs
+
+    def _observe_rounds(self, m, seen: int) -> int:
+        """Feed `biscotti_sim_round_seconds` from the sim.round spans
+        recorded after sequence number `seen`: each span's device time on
+        a device-timed Telemetry, its host time otherwise, never the two
+        mixed (a span past the device clock's bound, which has no device
+        time, is left out). Called every round, so the recorder's ring
+        never wraps past a span unread; a span the device has not passed
+        yet is read at a later round, and the last round's error read-back
+        lets the device pass them all. Returns the recorder's new cursor."""
+        tel = self.telemetry
+        tel.flush()
+        field = "dur_s" if tel.clock is None else "dev_s"
+        hist = m.histogram("biscotti_sim_round_seconds",
+                           "simulator round: the sim.round span's device "
+                           "time on a card, its host time on the CPU")
+        for ev in tel.recorder.tail_since(seen, limit=1 << 30):
+            if (ev["event"] == "span" and ev["phase"] == "sim.round"
+                    and field in ev):
+                hist.observe(ev[field])
+        return tel.recorder.seq
 
     def run_scan(self, num_rounds: Optional[int] = None,
                  seed: Optional[int] = None):

@@ -31,11 +31,21 @@ inherit the enclosing span as their `parent`, and `rpc_span` opens the
 receiver-side child span for one handled RPC off the frame's wire
 context. With tracing off (the default) none of these fields exist and
 every event is byte-identical to the pre-tracing schema.
+
+Device time (`device=` a CUDA device, docs/TORCH_SIM_SPANS.md): each
+span also records a pooled CUDA event pair on the current stream, and
+nothing waits for the device inside it. `flush()`, after the caller's
+own synchronise, resolves the pairs into the span events, which gain
+`dev_s` (entry event to exit event) and `lead_s` (the entry event's
+device time less the host's entry time, on the host clock by one anchor
+taken at construction). While a torch profiler records, and only then,
+every span also opens `torch.profiler.record_function(name)`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import sys
 import time
 from typing import Dict, Optional
 
@@ -115,6 +125,98 @@ class NullRecorder:
 
 NULL_REGISTRY = NullRegistry()
 NULL_RECORDER = NullRecorder()
+_NO_RANGE = contextlib.nullcontext()
+
+
+def _profiler_range(name: str):
+    """`torch.profiler.record_function(name)` while a torch profiler is
+    recording, so that its trace carries the span on its own clock; else
+    a shared no-op. A process that never imported torch has no profiler."""
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_RANGE
+
+
+class DeviceClock:
+    """Times spans on one CUDA device without waiting for it.
+
+    `start()` takes the host's `perf_counter_ns` and records an event on
+    the device's current stream; `stop()` records the exit event on the
+    same stream (one stream lookup a span: it costs the host ~4 us). The
+    event pairs come from a pool that `resolve()` refills, and at most
+    `BOUND` spans hold a pair at once: `start()` past that returns None
+    and the span keeps its host fields only. Device times go onto the
+    host clock by one anchor: after a synchronise, `ANCHORS` events, each
+    recorded at a known `perf_counter_ns` and waited for; since no event
+    runs before the host records it, the tightest of those offsets maps
+    the device's clock onto the host's, and every resolved entry event
+    tightens it by the same rule, so no `lead_s` reads below 0. CUDA's
+    elapsed times are float32 milliseconds, so `lead_s` resolves to ~1 us
+    for the first ten seconds after the anchor and ~60 us after a
+    thousand; `dev_s` is unaffected."""
+
+    ANCHORS = 8
+    BOUND = 4096
+
+    def __init__(self, device):
+        import torch
+
+        self._cuda = torch.cuda
+        self.device = device
+        self.bound = self.BOUND
+        self._free: list = []
+        self._held = 0
+        self.pending: list = []  # (t0_ns, (entry, exit), fields), by exit
+        torch.cuda.synchronize(device)
+        stream = torch.cuda.current_stream(device)
+        marks = []
+        for _ in range(self.ANCHORS):
+            ev = torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter_ns()
+            ev.record(stream)
+            ev.synchronize()
+            marks.append((t, ev))
+        self._anchor = marks[0][1]
+        self._base_ns = max(t - self._anchor.elapsed_time(ev) * 1e6
+                            for t, ev in marks)
+
+    def start(self):
+        if self._held >= self.bound:
+            return None
+        self._held += 1
+        pair = self._free.pop() if self._free else tuple(
+            self._cuda.Event(enable_timing=True) for _ in range(2))
+        stream = self._cuda.current_stream(self.device)
+        t0 = time.perf_counter_ns()
+        pair[0].record(stream)
+        return t0, pair, stream
+
+    def stop(self, mark) -> None:
+        mark[1][1].record(mark[2])
+
+    def resolve(self) -> list:
+        """The fields of each span whose exit event the device has
+        passed, in the order the spans closed, with `dev_s` and `lead_s`
+        added; the rest stay pending. Reads no event the device has not
+        reached, so it never waits."""
+        done = []
+        for t0, pair, fields in self.pending:
+            if not pair[1].query():
+                break
+            # the host time at which the anchor ran, were this entry
+            # event's wait 0: the anchor ran no earlier
+            done.append((t0 - 1e6 * self._anchor.elapsed_time(pair[0]),
+                         pair, fields))
+        del self.pending[:len(done)]
+        self._held -= len(done)
+        if done:
+            self._base_ns = max(self._base_ns, max(x for x, _, _ in done))
+        for x, pair, fields in done:
+            fields["dev_s"] = pair[0].elapsed_time(pair[1]) / 1e3
+            fields["lead_s"] = (self._base_ns - x) / 1e9
+            self._free.append(pair)
+        return [fields for _, _, fields in done]
 
 
 class Telemetry:
@@ -122,7 +224,8 @@ class Telemetry:
                  ring: int = 4096, spill_path: str = "",
                  spill_batch: int = 256,
                  registry: Optional[MetricsRegistry] = None,
-                 max_label_sets: int = 256, trace: bool = False):
+                 max_label_sets: int = 256, trace: bool = False,
+                 device=None):
         self.node = node
         self.enabled = bool(enabled)
         # distributed tracing rides the recorder, so it needs the full
@@ -156,6 +259,15 @@ class Telemetry:
         else:
             self.recorder = NULL_RECORDER  # type: ignore[assignment]
         self._crash_path = spill_path + ".crash" if spill_path else ""
+        # a CUDA device: every span is timed on the card too (see
+        # DeviceClock); None or the CPU: host time alone
+        self.clock: Optional[DeviceClock] = None
+        if device is not None:
+            import torch
+
+            device = torch.device(device)
+            if device.type == "cuda":
+                self.clock = DeviceClock(device)
 
     # -------------------------------------------------------------- spans
 
@@ -176,22 +288,32 @@ class Telemetry:
             if ctx is None:
                 ctx = tracectx.child(self.node)
             token = tracectx.activate(ctx)
-        t0 = time.perf_counter()
-        try:
-            yield ctx
-        finally:
-            dt = time.perf_counter() - t0
-            if token is not None:
-                tracectx.restore(token)
-            self.phases.add(name, dt)
-            self._span_hist.observe(dt, phase=name)
-            if ctx is not None:
-                fields = dict(fields, trace=ctx.trace_id, span=ctx.span_id,
-                              parent=ctx.parent)
-                if it is None:
-                    it = ctx.round
-            self.recorder.record("span", iter=it, phase=name,
-                                 dur_s=round(dt, 6), **fields)
+        clock = self.clock
+        with _profiler_range(name):
+            mark = clock.start() if clock is not None else None
+            t0 = time.perf_counter()
+            try:
+                yield ctx
+            finally:
+                if mark is not None:
+                    clock.stop(mark)
+                dt = time.perf_counter() - t0
+                if token is not None:
+                    tracectx.restore(token)
+                self.phases.add(name, dt)
+                self._span_hist.observe(dt, phase=name)
+                if ctx is not None:
+                    fields = dict(fields, trace=ctx.trace_id, span=ctx.span_id,
+                                  parent=ctx.parent)
+                    if it is None:
+                        it = ctx.round
+                fields = dict(iter=it, phase=name, dur_s=round(dt, 6),
+                              **fields)
+                if mark is not None:
+                    # recorded by flush(), once the device has passed it
+                    clock.pending.append((mark[0], mark[1], fields))
+                else:
+                    self.recorder.record("span", **fields)
 
     @contextlib.contextmanager
     def rpc_span(self, msg_type: str, meta: Optional[Dict]):
@@ -264,6 +386,11 @@ class Telemetry:
         return self.registry.render()
 
     def flush(self) -> None:
+        """Record the device-timed spans the device has passed (call it
+        after a synchronise to have them all), then flush the recorder."""
+        if self.clock is not None:
+            for fields in self.clock.resolve():
+                self.recorder.record("span", **fields)
         self.recorder.flush()
 
     def crash_dump(self, reason: str = "") -> Optional[str]:
