@@ -30,6 +30,18 @@ grouped convolution, and the algorithms cuDNN picks for those were 2e-4
 deterministic or not, where a matmul is 1e-7 off, as on the CPU
 (`python -m biscotti_tpu_torch.tools.conv_precision`). So the forward and
 both gradients run as cuBLAS fp32 GEMMs.
+
+The columns are one copy of `Tensor.unfold` window views (`_columns`).
+Where a conv reads an activation (the LeNets' c2), the gradient reaches
+its input back through those windows. Autograd's adjoint of the views is
+`unfold_backward`, which has no vmap batching rule, so `vmap(grad)` ran it
+contributor by contributor (1,432 launches a round at 716 contributors).
+Such a conv takes its columns through `_Windows`, whose adjoint is col2im
+(`F.fold`): its batching rule folds the contributors into its batch, one
+launch a conv, each input pixel the sum of its ≤ k² window entries in a
+fixed order. A conv that reads the data needs no adjoint and takes
+`_columns` alone. The forward stays the view unfold: `F.unfold` (im2col)
+launches once a sample on the card.
 """
 
 from __future__ import annotations
@@ -117,6 +129,31 @@ def logreg_model(d_in: int, lammy: float = 0.01) -> Model:
 # ------------------------------------------------------------------ CNNs
 
 
+def _columns(h: torch.Tensor, k: int) -> torch.Tensor:
+    """The im2col columns [n, C·k·k, L] of an NCHW batch (stride 1), rows in
+    (c, i, j) order."""
+    n, c_in = h.shape[:2]
+    # [n, C, Ho, Wo, k, k] windows as a view, then one copy into columns
+    return h.unfold(2, k, 1).unfold(3, k, 1).permute(0, 1, 4, 5, 2, 3) \
+        .reshape(n, c_in * k * k, -1)
+
+
+class _Windows(torch.autograd.Function):
+    """`_columns` with col2im (`F.fold`) as its adjoint."""
+
+    generate_vmap_rule = True
+    forward = staticmethod(_columns)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        h, k = inputs
+        ctx.k, ctx.hw = k, tuple(h.shape[2:])
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return F.fold(g, ctx.hw, ctx.k), None
+
+
 def _conv(h: torch.Tensor, p: Dict[str, torch.Tensor], name: str,
           padding: int = 0) -> torch.Tensor:
     """NCHW activations through the reference's HWIO kernel and bias (stride
@@ -126,10 +163,10 @@ def _conv(h: torch.Tensor, p: Dict[str, torch.Tensor], name: str,
     k, c_out = w.shape[0], w.shape[3]
     if padding:
         h = F.pad(h, (padding,) * 4)
-    n, c_in, height, width = h.shape
-    # [n, C, Ho, Wo, k, k] windows as a view, then one copy into columns
-    cols = h.unfold(2, k, 1).unfold(3, k, 1).permute(0, 1, 4, 5, 2, 3) \
-        .reshape(n, c_in * k * k, -1)
+    n, _, height, width = h.shape
+    # the Function's dispatch costs the host ~1 ms a call under vmap(grad):
+    # only a conv whose input takes a gradient pays it
+    cols = _Windows.apply(h, k) if h.requires_grad else _columns(h, k)
     out = w.permute(3, 2, 0, 1).reshape(c_out, -1) @ cols + p[f"{name}.b"][:, None]
     return out.reshape(n, c_out, height - k + 1, width - k + 1)
 
